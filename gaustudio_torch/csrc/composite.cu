@@ -76,12 +76,9 @@ __global__ void __launch_bounds__(GS_BLOCK) render_tiles_kernel(
       const float dx = s_xy[j].x - pxf;
       const float dy = s_xy[j].y - pyf;
       const float4 co = s_conic_op[j];
-      // -0.5 (a dx dx + c dy dy) - b dx dy, unfused: it decides skip, stop and
-      // median, which must match the plain version (see common.cuh)
-      const float power = __fsub_rn(
-          __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(co.x, dx), dx),
-                                     __fmul_rn(__fmul_rn(co.z, dy), dy))),
-          __fmul_rn(__fmul_rn(co.y, dx), dy));
+      // unfused: it decides skip, stop and median, which must match the plain
+      // version and K4's re-walk (see common.cuh)
+      const float power = gs_power(co.x, co.y, co.z, dx, dy);
       if (power > 0.0f) continue;
       const float alpha = fminf(0.99f, co.w * expf(power));
       if (alpha < 1.0f / 255.0f) continue;

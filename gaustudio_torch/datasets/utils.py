@@ -1,4 +1,5 @@
-"""cameras.json interop (port of gaustudio_tpu/datasets/utils.py:287-338).
+"""cameras.json interop and scene normalisation (port of
+gaustudio_tpu/datasets/utils.py:287-355).
 
 The COLMAP readers come in a later slice.
 """
@@ -7,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gaustudio_torch.cameras import Camera, focal2fov, fov2focal
+from gaustudio_torch.cameras import Camera, focal2fov, fov2focal, getWorld2View2
 
 
 def JSON_to_camera(camera_json, device="cpu") -> Camera:
@@ -59,4 +60,20 @@ def camera_to_JSON(id, camera: Camera) -> dict:
         "fx": fov2focal(camera.FoVx, camera.image_width),
         "cy": camera.image_height * camera.principal_point_ndc[1],
         "cx": camera.image_width * camera.principal_point_ndc[0],
+    }
+
+
+def getNerfppNorm(cameras) -> dict:
+    """Scene centre and 1.1 x the largest camera-centre distance from it."""
+    centers = []
+    for cam in cameras:
+        C2W = np.linalg.inv(getWorld2View2(cam.R, cam.T))
+        centers.append(C2W[:3, 3:4])
+    centers = np.hstack(centers)
+    center = np.mean(centers, axis=1, keepdims=True)
+    dist = np.linalg.norm(centers - center, axis=0)
+    return {
+        "translate": -center.flatten(),
+        "radius": float(np.max(dist) * 1.1),
+        "min_radius": float(np.min(dist) * 1.5),
     }

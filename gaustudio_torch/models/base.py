@@ -33,7 +33,24 @@ class BasePointCloud:
                     torch.zeros((num_points, dim), dtype=torch.float32, device=self.device))
 
     def _as_tensor(self, arr) -> torch.Tensor:
+        if isinstance(arr, torch.Tensor):
+            return arr.detach().to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.asarray(arr, np.float32), device=self.device)
+
+    def update(self, **attrs):
+        """Replace the given attributes (arrays or tensors, one row per point)."""
+        for elem in self.config["attributes"]:
+            if elem in attrs:
+                setattr(self, "_" + elem, self._as_tensor(attrs[elem]))
+        self.num_points = int(self._xyz.shape[0])
+
+    def create_from_attribute(self, **attrs):
+        """Set each given attribute; the model's attributes become those given."""
+        given = {k: self._as_tensor(v) for k, v in attrs.items() if v is not None}
+        for elem, value in given.items():
+            setattr(self, "_" + elem, value.reshape(value.shape[0], -1))
+            self.num_points = int(value.shape[0])
+        self.config["attributes"] = {k: getattr(self, "_" + k).shape[1] for k in given}
 
     def load(self, ply_path: str):
         """Inria-format checkpoint loader: xyz, opacity and prefix-numbered

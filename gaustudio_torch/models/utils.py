@@ -7,6 +7,12 @@ import torch
 from gaustudio_torch.ops.gaussian import quat_to_rotmat
 
 
+def inverse_sigmoid(x):
+    """log(x / (1 - x)) in float32."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return torch.log(x / (1 - x))
+
+
 def get_activation(name):
     """Name -> elementwise activation (those of the vanilla model's config)."""
     if name is None or name.lower() == "none":

@@ -17,10 +17,22 @@ from gaustudio_torch.models.base import BasePointCloud
 from gaustudio_torch.models.utils import (
     build_covariance_from_scaling_rotation,
     get_activation,
+    inverse_sigmoid,
 )
+from gaustudio_torch.ops.sh import RGB2SH
 from gaustudio_torch.utils import ply as plyio
 
 _ELEMS = ("xyz", "opacity", "f_dc", "f_rest", "scale", "rot")
+
+
+def calculate_dist2(xyz) -> np.ndarray:
+    """Mean squared distance of each point to its 3 nearest neighbours
+    (scipy's cKDTree in place of simple_knn's distCUDA2)."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(xyz, np.float32)
+    dists, _ = cKDTree(pts).query(pts, k=4)
+    return (dists[:, 1:] ** 2).mean(axis=1).astype(np.float32)
 
 
 @models.register("vanilla_pcd")
@@ -62,6 +74,33 @@ class VanillaPointCloud(BasePointCloud):
         if "active_sh_degree" in params:
             pcd.active_sh_degree = int(params["active_sh_degree"])
         return pcd
+
+    def create_from_attribute(self, xyz, rgb=None, scale=None, rot=None, opacity=None,
+                              **_):
+        """Initial model of a point cloud: RGB -> SH dc (higher bands 0),
+        log-scale from the mean squared distance to the 3 nearest neighbours,
+        identity quaternions, opacity inverse_sigmoid(0.1)."""
+        xyz = np.asarray(xyz, np.float32)
+        n = xyz.shape[0]
+        rgb = np.ones_like(xyz) if rgb is None else np.asarray(rgb, np.float32)
+        if scale is None:
+            scale = np.repeat(np.log(np.sqrt(calculate_dist2(xyz) + 1e-7))[:, None], 3, axis=1)
+        if rot is None:
+            rot = np.zeros((n, 4), np.float32)
+            rot[:, 0] = 1.0
+        self._xyz = self._as_tensor(xyz)
+        self._f_dc = self._as_tensor(RGB2SH(rgb))
+        self._f_rest = torch.zeros((n, ((self.max_sh_degree + 1) ** 2 - 1) * 3),
+                                   dtype=torch.float32, device=self.device)
+        self._scale = self._as_tensor(scale)
+        self._rot = self._as_tensor(rot)
+        self._opacity = (inverse_sigmoid(torch.full((n, 1), 0.1)).to(self.device)
+                         if opacity is None else self._as_tensor(opacity).reshape(n, 1))
+        self.num_points = n
+
+    def oneupSHdegree(self):
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
 
     def get_attribute(self, attribute):
         """Activated attribute."""

@@ -184,10 +184,15 @@ def preprocess(
     rotations=None,
     cov3d_precomp=None,
     scale_modifier: float = 1.0,
+    means2d_offset=None,
     antialias: bool = False,
     intrinsics=None,
 ) -> Preprocessed:
-    """Full per-Gaussian preprocess (the CUDA reference's preprocessCUDA)."""
+    """Full per-Gaussian preprocess (the CUDA reference's preprocessCUDA).
+
+    ``means2d_offset`` [N, 2] is added to the pixel means; its gradient is
+    the screen-space position gradient that densification accumulates.
+    """
     if antialias:
         raise NotImplementedError("antialiased preprocess comes with the gsplat slice")
     if intrinsics is not None:
@@ -221,6 +226,9 @@ def preprocess(
     det_inv = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
     conic = torch.stack(
         [cov2d[..., 2] * det_inv, -cov2d[..., 1] * det_inv, cov2d[..., 0] * det_inv], -1)
+
+    if means2d_offset is not None:
+        mean2d = mean2d + means2d_offset
 
     mid = 0.5 * (cov2d[..., 0] + cov2d[..., 2])
     disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))

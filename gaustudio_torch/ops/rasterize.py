@@ -1,9 +1,10 @@
-"""Forward rasterization API (port of gaustudio_tpu/ops/rasterize.py).
+"""Differentiable rasterization API (port of gaustudio_tpu/ops/rasterize.py).
 
-preprocess (torch ops) -> binning (kernels K1, K2 and a stable torch.sort)
--> compositing (kernel K3). CUDA tensors go through the kernels and CPU
-tensors through their plain versions; ``backend="plain"`` asks for the
-plain versions on any device.
+preprocess (torch ops under autograd) -> binning (kernels K1, K2 and a
+stable torch.sort, on detached values) -> compositing (kernel K3 forward,
+kernel K4 backward, in composite.composite). CUDA tensors go through the
+kernels and CPU tensors through their plain versions; ``backend="plain"``
+asks for the plain versions on any device.
 
 Outputs (CHW): render [3,H,W], rendered_depth [1,H,W],
 rendered_median_depth [1,H,W], rendered_median_weight [1,H,W],
@@ -28,7 +29,7 @@ class RasterizeSettings(NamedTuple):
     image_width: int
     tanfovx: float
     tanfovy: float
-    bg: torch.Tensor  # [3]; not composited in the forward
+    bg: torch.Tensor  # [3]; not composited in the forward, used in the backward
     scale_modifier: float = 1.0
     viewmatrix: torch.Tensor = None  # [4,4] transposed W2V
     projmatrix: torch.Tensor = None  # [4,4] transposed W2V @ P
@@ -41,11 +42,14 @@ class RasterizeSettings(NamedTuple):
 
 def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
               colors_precomp=None, scales=None, rotations=None, cov3D_precomp=None,
-              active_sh_degree=None):
-    """Forward 3DGS rasterization.
+              means2D_offset=None, active_sh_degree=None):
+    """Differentiable 3DGS rasterization.
 
     Exactly one of (shs, colors_precomp) and exactly one of
-    (scales + rotations, cov3D_precomp) must be given.
+    (scales + rotations, cov3D_precomp) must be given. ``means2D_offset``
+    [N, 2] stands for the reference's zero ``screenspace_points`` input: its
+    gradient is the pixel-space mean gradient scaled by (0.5 W, 0.5 H), the
+    reference's viewspace gradient convention that densification reads.
     """
     if (shs is None) == (colors_precomp is None):
         raise ValueError("Please provide exactly one of SHs or precomputed colors")
@@ -61,6 +65,11 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
     grid_x = (W + gaussian.TILE_X - 1) // gaussian.TILE_X
     grid_y = (H + gaussian.TILE_Y - 1) // gaussian.TILE_Y
 
+    pix_offset = None
+    if means2D_offset is not None:
+        pix_offset = means2D_offset * torch.tensor(
+            [0.5 * W, 0.5 * H], dtype=means2D_offset.dtype, device=means2D_offset.device)
+
     pre = gaussian.preprocess(
         means3D, torch.reshape(opacities, (-1,)), settings.viewmatrix,
         settings.projmatrix, settings.campos, W, H, settings.tanfovx,
@@ -68,14 +77,17 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
         sh_degree=settings.sh_degree if active_sh_degree is None else active_sh_degree,
         colors_precomp=colors_precomp, scales=scales, rotations=rotations,
         cov3d_precomp=cov3D_precomp, scale_modifier=settings.scale_modifier,
-        intrinsics=settings.intrinsics,
+        means2d_offset=pix_offset, intrinsics=settings.intrinsics,
     )
 
     plain = settings.backend == "plain"
-    binned = binning.bin_gaussians(pre, grid_x, grid_y, plain=plain)
-    render_fn = composite.render_tiles_plain if plain else composite.render_tiles
-    out = render_fn(binned.ranges, binned.point_list, pre.means2d, pre.conic,
-                    pre.opacities, pre.colors, pre.depths, grid_x, grid_y, W, H)
+    binned = binning.bin_gaussians(gaussian.Preprocessed(*(x.detach() for x in pre)),
+                                   grid_x, grid_y, plain=plain)
+    bg = settings.bg if settings.bg is not None else torch.zeros(3)
+    out = composite.composite(pre.means2d, pre.conic, pre.opacities, pre.colors, pre.depths,
+                              bg.to(device=pre.depths.device, dtype=torch.float32),
+                              binned.ranges, binned.point_list, grid_x, grid_y, W, H,
+                              plain=plain)
     return {
         "render": out.color,
         "rendered_depth": out.depth,

@@ -1,0 +1,147 @@
+"""gs-train: vanilla 3DGS training (port of gaustudio_tpu/scripts/train.py).
+
+    python -m gaustudio_torch.scripts.train -s <scene> -o <out> --dataset vanilla|nerf
+
+Trains on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
+for. Starts from ``<scene>/sparse/0/points3D.ply`` when it exists, else from
+``--init_points`` random points in the camera extent. Writes the Inria
+layout that gs-render reads: ``point_cloud/iteration_N/point_cloud.ply``
+and ``cameras.json``. Multi-device training, 2DGS, scaffold and the COLMAP
+dataset belong to later slices of the port and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from gaustudio_torch.scripts.render import _device
+
+
+def _refuse_deferred(args, config) -> None:
+    if args.dataset == "colmap":
+        raise NotImplementedError(
+            "--dataset colmap: the COLMAP reader (datasets/colmap.py) is deferred in the "
+            "port (ROADMAP, 'Deferred from slice 1'); use --dataset vanilla or nerf")
+    if args.gs_shards is not None:
+        raise NotImplementedError(
+            "--gs_shards: multi-device training comes to the port with slice 8")
+    model = config["model"]["pointcloud"].get("name", "vanilla_pcd")
+    renderer = config.get("renderer", {}).get("name", "vanilla_renderer")
+    if renderer == "surfel_renderer":
+        raise NotImplementedError("2DGS (surfel) training comes to the port with slice 4")
+    if model != "vanilla_pcd" or renderer != "vanilla_renderer":
+        raise NotImplementedError(
+            f"model {model!r} / renderer {renderer!r}: the model and renderer variants "
+            "(scaffold, mip, gsplat) come to the port with slice 5")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="vanilla")
+    parser.add_argument("--gpu", default="0", help="index of the card with --device cuda")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--source_path", "-s", required=True)
+    parser.add_argument("--output-dir", "-o", required=True)
+    parser.add_argument("--iterations", default=30000, type=int)
+    parser.add_argument("--resolution", default=1, type=int)
+    parser.add_argument("--dataset", default="colmap",
+                        help="dataset registry name (vanilla or nerf in the port)")
+    parser.add_argument("--white_background", action="store_true")
+    parser.add_argument("--save_every", default=7000, type=int)
+    parser.add_argument("--seed", default=42, type=int)
+    parser.add_argument("--init_points", default=50000, type=int,
+                        help="random-init point count when no sparse points exist")
+    parser.add_argument("--resume", default=None,
+                        help="checkpoint file (output_dir/ckpt/step_N.pt) to restore the "
+                             "whole training state from")
+    parser.add_argument("--no_dp", action="store_true",
+                        help="single-device training (the port trains on one device)")
+    parser.add_argument("--gs_shards", default=None, type=int,
+                        help="Gaussian-axis shards for multi-device training (slice 8)")
+    parser.add_argument("--checkpoint_every", default=0, type=int,
+                        help="save a full training checkpoint every N iterations")
+    args, extras = parser.parse_known_args(argv)
+
+    from gaustudio_torch import datasets, models
+    from gaustudio_torch.config import builtin_config_path, load_config
+    from gaustudio_torch.pipelines import train as T
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    config_path = args.config if os.path.exists(args.config) else builtin_config_path(args.config)
+    if not os.path.exists(config_path):
+        raise NotImplementedError(
+            f"--config {args.config}: the port ships only the vanilla config; 2DGS comes "
+            "with slice 4, the other model and renderer variants with slice 5")
+    config = load_config(config_path, cli_args=extras)
+    _refuse_deferred(args, config)
+    device = _device(args)
+
+    dataset = datasets.make({"name": args.dataset, "source_path": args.source_path,
+                             "resolution": args.resolution,
+                             "white_background": args.white_background})
+    if args.resolution > 1:
+        dataset.downsample_scale(args.resolution)
+
+    pcd = models.make(config["model"]["pointcloud"], device=device)
+    sparse_ply = os.path.join(args.source_path, "sparse", "0", "points3D.ply")
+    if os.path.exists(sparse_ply):
+        xyz, rgb, _ = fetch_ply(sparse_ply)
+        pcd.create_from_attribute(xyz=xyz, rgb=rgb)
+    else:
+        n0 = args.init_points
+        print(f"No sparse points found; random init of {n0} points")
+        rng = np.random.default_rng(args.seed)
+        r = dataset.cameras_extent
+        xyz = rng.uniform(-r / 2, r / 2, (n0, 3)).astype(np.float32)
+        pcd.create_from_attribute(xyz=xyz, rgb=np.full((n0, 3), 0.5, np.float32))
+
+    tr_conf = config.get("trainer", {})
+    cfg = T.TrainConfig(
+        iterations=args.iterations,
+        lambda_dssim=float(tr_conf.get("lambda_dssim", 0.2)),
+        densify_from_iter=int(tr_conf.get("densify_from_iter", 500)),
+        densify_until_iter=int(tr_conf.get("densify_until_iter", 15000)),
+        densification_interval=int(tr_conf.get("densification_interval", 100)),
+        densify_grad_threshold=float(tr_conf.get("densify_grad_threshold", 0.0002)),
+        opacity_reset_interval=int(tr_conf.get("opacity_reset_interval", 3000)),
+        percent_dense=float(tr_conf.get("percent_dense", 0.01)),
+        white_background=args.white_background,
+    )
+    trainer = T.Trainer(pcd, dataset, cfg, seed=args.seed, device=device)
+    if args.resume:
+        trainer.restore(args.resume)
+        print(f"Resumed training state from {args.resume} (step {trainer.state.step}, "
+              f"{trainer.state.num_points} points)")
+
+    def save(iteration):
+        out = os.path.join(args.output_dir, "point_cloud", f"iteration_{iteration}")
+        os.makedirs(out, exist_ok=True)
+        T.state_to_model(trainer.state, pcd)
+        pcd.export(os.path.join(out, "point_cloud.ply"))
+        dataset.export(os.path.join(args.output_dir, "cameras.json"))
+
+    def log(m):
+        print(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
+              f"points {int(m['num_points'])}", flush=True)
+        if m["iter"] % args.save_every == 0:
+            save(m["iter"])
+
+    ckpt_kw = {}
+    if args.checkpoint_every:
+        ckpt_kw = dict(checkpoint_dir=os.path.join(args.output_dir, "ckpt"),
+                       checkpoint_every=args.checkpoint_every)
+    # metrics.jsonl, and the snapshot of a non-finite loss, land under -o
+    history = trainer.train(iterations=args.iterations, log_every=100, callback=log,
+                            metrics_path=os.path.join(args.output_dir, "metrics.jsonl"),
+                            **ckpt_kw)
+    save(args.iterations)
+    print(f"Training done -> {args.output_dir}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "gs_write_keys": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "gs_identify_tile_ranges": [_I, _P, _P, _P],
     "gs_render_tiles": [_I, _I, _I, _I] + [_P] * 15,
+    "gs_render_tiles_backward": [_I, _I, _I, _I] + [_P] * 20,
 }
 
 _lib = None

@@ -1,4 +1,5 @@
-"""Binary PLY reader/writer for Inria-layout Gaussian checkpoints (numpy only).
+"""Binary PLY reader/writer for Inria-layout Gaussian checkpoints and point
+clouds (numpy only).
 
 Port of the binary, scalar-property part of gaustudio_tpu/utils/ply.py:
 ``point_cloud.ply`` files hold one ``vertex`` element of float properties
@@ -95,3 +96,18 @@ def write_ply(path: str, vertex_props: Dict[str, np.ndarray]) -> None:
     with open(path, "wb") as f:
         f.write(header.getvalue().encode("ascii"))
         f.write(rec.tobytes())
+
+
+def fetch_ply(path: str):
+    """A point cloud PLY -> (xyz [N, 3], rgb in [0, 1] or None, normals or None)."""
+    v = read_ply(path)["vertex"]
+    xyz = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    rgb = None
+    if "red" in v:
+        rgb = np.stack([v["red"], v["green"], v["blue"]], axis=1).astype(np.float32)
+        if rgb.max() > 1.0:
+            rgb = rgb / 255.0
+    normals = None
+    if "nx" in v:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], axis=1).astype(np.float32)
+    return xyz, rgb, normals

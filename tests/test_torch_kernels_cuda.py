@@ -1,5 +1,5 @@
-"""The three CUDA kernels of gaustudio_torch against their plain PyTorch
-versions, on the card. Skipped where torch sees no CUDA device.
+"""The CUDA kernels of gaustudio_torch (K1-K3 forward, K4 backward) against
+their plain PyTorch versions, on the card. Skipped where torch sees no CUDA device.
 
 This file imports no jax. tests/conftest.py does, though, and the machine
 with the card has no jax, so pytest cannot collect this file there:
@@ -77,3 +77,25 @@ def test_render_tiles_matches_plain(pre):
             assert torch.equal(g, r), name
         else:
             torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_render_tiles_backward_matches_plain(pre):
+    """K4 sums each warp's gradients with atomicAdd, in an order that changes
+    from run to run: each gradient, scaled by the plain version's max
+    |value|, agrees within the tolerance of tests/test_pallas_bwd.py."""
+    p, gx, gy, w, h = pre
+    b = binning.bin_gaussians(p, gx, gy, plain=True)
+    fwd = composite.render_tiles_plain(b.ranges, b.point_list, p.means2d, p.conic, p.opacities,
+                                       p.colors, p.depths, gx, gy, w, h)
+    gen = torch.Generator(device=p.depths.device).manual_seed(0)
+    cts = [torch.randn(shape, generator=gen, device=p.depths.device)
+           for shape in ((3, h, w), (h, w), (h, w), (h, w))]
+    args = (b.ranges, b.point_list, p.means2d, p.conic, p.opacities, p.colors, p.depths,
+            torch.tensor([0.2, 0.4, 0.1], device=p.depths.device), fwd.final_T, fwd.n_contrib,
+            *cts, gx, gy, w, h)
+    got = composite.render_tiles_backward(*args)
+    want = composite.render_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(got._fields, got, want):
+        scale = float(r.abs().max()) + 1e-6
+        torch.testing.assert_close(g / scale, r / scale, rtol=2e-3, atol=2e-5, msg=name)
