@@ -9,10 +9,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build: the CUDA kernels of gaustudio_torch/csrc, compiled with nvcc at
    first use (build seconds and ptxas register counts);
 3. kernels: each kernel (K1 duplicate_with_keys, K2 identify_tile_ranges,
-   K3 render_tiles, K4 render_tiles_backward) against its plain PyTorch
-   version on the card, on a mini_scene view and on one 1920x1080 view of a
-   300k-Gaussian, SH-degree-3 model, with the tolerances stated below; then
-   each kernel's time against its plain version's at the 1080p shapes, and
+   K3 render_tiles, K4 render_tiles_backward; K1 without the cull, K5
+   render_surfel_tiles and K6 render_surfel_tiles_backward) against its plain
+   PyTorch version on the card, on a mini_scene view (vanilla, and the same
+   model as 2DGS surfels) and on one 1920x1080 view of a 300k-Gaussian
+   SH-3 model (K1-K4) and of a 200k-surfel SH-3 model (K1, K2, K5, K6), with
+   the tolerances stated below; then each kernel's time against its plain
+   version's (and, for K2, torch.searchsorted's) at the 1080p shapes, and
    the time of the torch-op stages (activations + preprocess, the sort);
 4. render path on the fixture: gs-render on tests/fixtures/mini_scene, and
    the renderer's PSNR against GOLDEN.json (within 0.15 dB);
@@ -24,16 +27,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    counts of that run, and the PSNR of the exported model against that of
    the initial point cloud (at least 3 dB better);
 6b. training with the kernels against training with the plain versions:
-   100 steps from the fixture's model, one camera sequence, final PSNR
+   50 steps from the fixture's model, one camera sequence, final PSNR
    within 0.1 dB;
 7. training at full width: 30 steps and one densify at 1920x1080 / 300k /
-   SH 3 and at 512x512 / 100k, with ms per iteration and a breakdown.
+   SH 3 and at 512x512 / 100k, with ms per iteration and a breakdown;
+8. 2DGS render path at full width: gs-render --config 2dgs of the 200k-surfel
+   model from three 1920x1080 cameras, with the launch counts, the lit
+   fraction (alpha > 0.01) and rasterize_surfels() timed warm against the
+   plain path;
+9. 2DGS training path on the fixture: gs-train --config 2dgs from the
+   fixture's sparse points as in phase 6, with the launch counts, a
+   2-column scale export and the exported model's PSNR against that of the
+   initial point cloud (at least 2 dB better);
+9b. 2DGS training with the kernels against the plain versions: 20 steps,
+   one camera sequence, final PSNR within 0.1 dB;
+10. 2DGS training at 512x512 / 60k surfels: 30 steps and one densify, with
+   ms per iteration and a breakdown.
 
-Each path (phases 4, 5 and 6) is driven with every launch count set to 0
-just before it and read just after; a kernel of the path that was not
+Each path (phases 4, 5, 6, 8 and 9) is driven with every launch count set to
+0 just before it and read just after; a kernel of the path that was not
 launched fails the run. The report's ``launches`` sums the counts of the
-render path (phase 5) and the training path (phase 6). The last two lines
-are {"kernels": [...]} and
+render and training paths (phases 5, 6, 8 and 9). The last two lines are
+{"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax.
 """
@@ -68,6 +83,29 @@ K3_ATOL = K3_RTOL = 1e-5
 # to run: each gradient, scaled by the plain version's max |value|, agrees
 # within the tolerance of tests/test_pallas_bwd.py.
 K4_RTOL, K4_ATOL = 2e-3, 2e-5
+# K5 and K6 are held to K3's and K4's tolerances, for the same reasons: the
+# intersection and alpha are one unfused helper (gs_surfel_hit in common.cuh).
+SURFEL_N = 200_000  # bench_all.py bench_surfel_render
+SURFEL_TRAIN_W = SURFEL_TRAIN_H = 512  # bench_all.py bench_surfel_train_step
+SURFEL_TRAIN_N = 60_000
+SURFEL_FIXTURE_GAIN_DB = 2.0  # tests/test_train_surfel.py:86
+SURFEL_CONFIG = {"name": "vanilla_pcd", "attributes": {
+    "xyz": 3, "opacity": 1, "f_dc": 3, "f_rest": 45, "scale": 2, "rot": 4}}
+
+# The bound of a kernel: the larger of the bytes its function must move (each
+# input read once, each output written once) over the memory rate, and its
+# float32 operations over the float32 peak outside the tensor cores, for one
+# H100 SXM (NVIDIA's data sheet, dense f32 rate). Operations per unit of
+# work are counted from the sources: K1 ~79 per (Gaussian, rect tile) and
+# pass in tile_max_alpha_keep; K2 1 compare per entry; per (entry, pixel)
+# pair a pixel evaluates, K3 ~20 (power, exp, alpha, tests, blend), K4 ~60,
+# K5 ~45 (gs_surfel_hit ~33, the tests and the 13-value blend) and K6 ~110
+# (the hit and the VJP of the intersection).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS = {"duplicate_with_keys": 79, "identify_tile_ranges": 1, "render_tiles": 20,
+       "render_tiles_backward": 60, "render_surfel_tiles": 45,
+       "render_surfel_tiles_backward": 110}
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "duplicate_with_keys": ("gaustudio_torch/csrc/binning.cu",
@@ -80,8 +118,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                               "gaustudio_tpu/ops/rasterize_pallas_bwd.py:80 (B4), "
                               "gaustudio_tpu/ops/rasterize_pallas_bwd.py:451 (B5), "
                               "gaustudio_tpu/ops/binning_fast.py:394 (B6)"),
+    "render_surfel_tiles": ("gaustudio_torch/csrc/composite_surfel.cu",
+                            "gaustudio_tpu/ops/rasterize_surfel_pallas.py:409"),
+    "render_surfel_tiles_backward": ("gaustudio_torch/csrc/composite_surfel_bwd.cu",
+                                     "gaustudio_tpu/ops/rasterize_surfel_pallas_bwd.py:57 (B8), "
+                                     "gaustudio_tpu/ops/rasterize_pallas_bwd.py:451 (B5)"),
 }
 FORWARD = ("duplicate_with_keys", "identify_tile_ranges", "render_tiles")
+SURFEL_FORWARD = ("duplicate_with_keys", "identify_tile_ranges", "render_surfel_tiles")
 
 
 def say(phase: str, msg: str) -> None:
@@ -118,26 +162,16 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # --- scenes -------------------------------------------------------------
 
 
-def write_full_scene(out_dir: str, seed: int = 0, n: int = FULL_N, W: int = FULL_W,
-                     H: int = FULL_H, name: str = "full") -> tuple[str, str]:
-    """An n-point SH-degree-3 vanilla PLY and a cameras.json of three WxH
-    views. Geometry, opacity and base colour come from bench.make_scene; the
-    higher SH bands are seeded noise."""
-    from bench import make_scene
+def write_scene(out_dir: str, params: dict, W: int, H: int, name: str,
+                config=None) -> tuple[str, str]:
+    """A PLY of the raw attributes ``params`` and a cameras.json of three WxH
+    views: bench.py's camera (tan(fov_x/2) = 0.85) yawed by -0.02, 0 and
+    +0.02 rad."""
     from gaustudio_torch.models.vanilla import VanillaPointCloud
-    from gaustudio_torch.ops.sh import RGB2SH
 
-    xyz, scales, quats, opac, colors = make_scene(n, seed=seed)
-    rng = np.random.default_rng(seed + 1)
-    f_rest = (rng.normal(size=(n, 45)) * 0.05).astype(np.float32)
-    pcd = VanillaPointCloud.from_jax_params({
-        "xyz": xyz, "opacity": np.log(opac / (1.0 - opac))[:, None],
-        "f_dc": RGB2SH(colors), "f_rest": f_rest, "scale": np.log(scales), "rot": quats,
-    })
     ply = os.path.join(out_dir, f"{name}_scene.ply")
-    pcd.export(ply)
-
-    tanfov = 0.85  # bench.py's camera
+    VanillaPointCloud.from_jax_params(params, config=config).export(ply)
+    tanfov = 0.85
     focal = W / (2.0 * tanfov)
     cams = []
     for i in range(FULL_VIEWS):
@@ -155,10 +189,72 @@ def write_full_scene(out_dir: str, seed: int = 0, n: int = FULL_N, W: int = FULL
     return ply, cams_path
 
 
-def load_model(ply: str, sh: int, device):
+def _sh3(colors: np.ndarray, seed: int) -> dict:
+    """SH degree-3 attributes: the base colour as band 0, seeded bands 1-3."""
+    from gaustudio_torch.ops.sh import RGB2SH
+
+    rng = np.random.default_rng(seed + 1)
+    return {"f_dc": RGB2SH(colors),
+            "f_rest": (rng.normal(size=(colors.shape[0], 45)) * 0.05).astype(np.float32)}
+
+
+def write_full_scene(out_dir: str, seed: int = 0, n: int = FULL_N, W: int = FULL_W,
+                     H: int = FULL_H, name: str = "full") -> tuple[str, str]:
+    """An n-point SH-degree-3 vanilla scene: geometry, opacity and base colour
+    from bench.make_scene, the higher SH bands seeded noise."""
+    from bench import make_scene
+
+    xyz, scales, quats, opac, colors = make_scene(n, seed=seed)
+    return write_scene(out_dir, {
+        "xyz": xyz, "opacity": np.log(opac / (1.0 - opac))[:, None], **_sh3(colors, seed),
+        "scale": np.log(scales), "rot": quats}, W, H, name)
+
+
+def write_surfel_scene(out_dir: str, seed: int = 0, n: int = SURFEL_N, W: int = FULL_W,
+                       H: int = FULL_H, name: str = "surfel") -> tuple[str, str]:
+    """An n-surfel SH-degree-3 2DGS scene from the generator of bench_all.py
+    bench_surfel_render (2-column scales), with seeded SH bands 1-3 as
+    write_full_scene seeds them."""
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((n, 3), np.float32)
+    xyz[:, 0] = rng.normal(size=n) * 1.1
+    xyz[:, 1] = rng.normal(size=n) * 0.65
+    xyz[:, 2] = rng.uniform(0.8, 6.0, n)
+    scales = (np.exp(rng.normal(size=(n, 2)) * 0.4) * 0.01).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = rng.uniform(0.3, 0.95, n).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    return write_scene(out_dir, {
+        "xyz": xyz, "opacity": np.log(opac / (1.0 - opac))[:, None], **_sh3(colors, seed),
+        "scale": np.log(scales), "rot": quats}, W, H, name, config=SURFEL_CONFIG)
+
+
+def write_surfel_train_scene(out_dir: str, seed: int = 0, n: int = SURFEL_TRAIN_N,
+                             W: int = SURFEL_TRAIN_W, H: int = SURFEL_TRAIN_H,
+                             name: str = "surfel_train") -> tuple[str, str]:
+    """bench_all.py's _train_scene(n, two_d=True): camera-facing surfels of
+    log-scale -4.6, opacity 0.1, SH degree 0 of uniform colours."""
+    from gaustudio_torch.ops.sh import RGB2SH
+
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((n, 3), np.float32)
+    xyz[:, 0] = rng.normal(size=n) * 0.8
+    xyz[:, 1] = rng.normal(size=n) * 0.6
+    xyz[:, 2] = rng.uniform(1.2, 5.0, n)
+    rot = np.zeros((n, 4), np.float32)
+    rot[:, 0] = 1.0
+    return write_scene(out_dir, {
+        "xyz": xyz, "opacity": np.full((n, 1), math.log(0.1 / 0.9), np.float32),
+        "f_dc": RGB2SH(rng.uniform(size=(n, 3)).astype(np.float32)),
+        "f_rest": np.zeros((n, 45), np.float32), "scale": np.full((n, 2), -4.6, np.float32),
+        "rot": rot}, W, H, name, config=SURFEL_CONFIG)
+
+
+def load_model(ply: str, sh: int, device, config=None):
     from gaustudio_torch import models
 
-    pcd = models.make({"name": "vanilla_pcd"}, device=device)
+    pcd = models.make(config or {"name": "vanilla_pcd"}, device=device)
     pcd.load(ply)
     pcd.active_sh_degree = sh
     return pcd
@@ -181,6 +277,18 @@ def view_preprocess(renderer, cam, pcd):
         xyz, opacity.reshape(-1), st.viewmatrix, st.projmatrix, st.campos,
         st.image_width, st.image_height, st.tanfovx, st.tanfovy, shs=shs,
         sh_degree=pcd.active_sh_degree, scales=scales, rotations=rotations)
+
+
+def view_preprocess_surfel(renderer, cam, pcd):
+    """The SurfelPre of one view, exactly as rasterize_surfels() computes it."""
+    from gaustudio_torch.ops import rasterize_surfel
+
+    xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
+    st = renderer.make_settings(cam, pcd, xyz.device)
+    return rasterize_surfel.preprocess_surfel(
+        xyz, opacity, st.viewmatrix, st.projmatrix, st.campos, st.image_width,
+        st.image_height, scales=scales, rotations=rotations, shs=shs,
+        sh_degree=pcd.active_sh_degree)
 
 
 # --- phase 3: kernels against their plain versions ----------------------
@@ -264,7 +372,7 @@ def compare_backward(pre, W: int, H: int, seed: int):
 
 
 def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
-    """{kernel: (ms, plain_ms)} at the shapes of one view; also prints the
+    """{kernel: (ms, plain_ms[, library_ms])} at the shapes of one view; also prints the
     time of the stages of rasterize() that are torch ops (``preprocess`` is
     the call that made ``pre``)."""
     from gaustudio_torch.ops import binning, composite
@@ -289,10 +397,168 @@ def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
             cuda_ms(lambda: composite.render_tiles_plain(*args), 3)),
     }
     sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
-    for name, (ms, plain_ms) in times.items():
-        say("time", f"{name} {W}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {card}")
+    # K2's library yardstick: one torch.searchsorted of every tile's first key
+    bounds = torch.arange(gx * gy + 1, dtype=torch.int64, device=keys.device) << 32
+    times["identify_tile_ranges"] += (
+        cuda_ms(lambda: torch.searchsorted(sorted_keys, bounds), 20),)
+    for name, (ms, plain_ms, *lib) in times.items():
+        say("time", f"{name} {W}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", torch.searchsorted {lib[0]:.4f} ms" if lib else "") + f" | {card}")
     say("time", f"torch.sort of {keys.shape[0]} keys: {sort_ms:.4f} ms | {card}")
     say("time", f"activations + preprocess {W}x{H}: {preprocess_ms:.4f} ms | {card}")
+    return times
+
+
+def compare_surfel_kernels(pre, W: int, H: int, seed: int):
+    """K1 without the cull, K5 and K6 against their plain versions on one
+    surfel view (K6 with seeded random cotangents on every differentiable
+    output). Returns ({kernel: max abs error}, K5's arguments, K6's
+    arguments)."""
+    from gaustudio_torch.ops import binning, composite_surfel, rasterize_surfel
+
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    device = pre.depths.device
+    bin_in = rasterize_surfel.binning_input(pre)
+    keys, gids = binning.duplicate_with_keys(bin_in, gx, cull=False)
+    keys_p, gids_p = binning.duplicate_with_keys_plain(bin_in, gx, cull=False)
+    check(keys.shape == keys_p.shape, f"K1 (no cull) entry count {keys.shape[0]} != plain "
+          f"{keys_p.shape[0]}")
+    k1_err = max(int((keys - keys_p).abs().max()), int((gids - gids_p).abs().max()))
+    check(k1_err == 0, "K1 without the cull disagrees with its plain version")
+    b = binning.bin_gaussians(bin_in, gx, gy, cull=False)
+    check(b.num_rendered == int(pre.tiles_touched.sum()),
+          "K1 without the cull dropped entries of the rects")
+
+    fwd_args = (b.ranges, b.point_list, pre.M, pre.Dk, pre.mean2d, pre.opacities, pre.colors,
+                pre.normal_view, gx, gy, W, H)
+    out = composite_surfel.render_surfel_tiles(*fwd_args)
+    out_p = composite_surfel.render_surfel_tiles_plain(*fwd_args)
+    torch.cuda.synchronize()
+    k5_err, int_mismatch = 0.0, 0
+    for name, a, ref in zip(out._fields, out, out_p):
+        if a.dtype == torch.int32:
+            int_mismatch += int((a != ref).sum())
+        else:
+            check(torch.isfinite(a).all(), f"K5 {name}: non-finite values")
+            k5_err = max(k5_err, float((a - ref).abs().max()))
+            torch.testing.assert_close(a, ref, atol=K3_ATOL, rtol=K3_RTOL, msg=f"K5 {name}")
+    check(int_mismatch == 0, "K5 median id / n_contrib disagree with the plain version")
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cts = [torch.randn(shape, generator=gen, device=device)
+           for shape in ((3, H, W), (H, W), (H, W), (3, H, W), (H, W), (H, W))]
+    bwd_args = fwd_args[:8] + (out.final_T, out.n_contrib, *cts) + fwd_args[8:]
+    got = composite_surfel.render_surfel_tiles_backward(*bwd_args)
+    want = composite_surfel.render_surfel_tiles_backward_plain(*bwd_args)
+    torch.cuda.synchronize()
+    k6_err, scaled = 0.0, {}
+    for name, a, ref in zip(got._fields, got, want):
+        check(torch.isfinite(a).all(), f"K6 d_{name}: non-finite values")
+        scale = float(ref.abs().max()) + 1e-6
+        k6_err = max(k6_err, float((a - ref).abs().max()))
+        scaled[name] = float((a - ref).abs().max()) / scale
+        torch.testing.assert_close(a / scale, ref / scale, rtol=K4_RTOL, atol=K4_ATOL,
+                                   msg=f"K6 d_{name} (scaled by {scale:.4g})")
+    say("kernels", f"{W}x{H} surfels: num_rendered {b.num_rendered} ({pre.depths.shape[0]} "
+        f"surfels, max {int((b.ranges[:, 1] - b.ranges[:, 0]).max())} per tile); K1 (no cull) "
+        f"max|err| {k1_err}; K5 max|err| {k5_err:.3e} (tol {K3_ATOL:g} + {K3_RTOL:g}*|x|), "
+        f"int mismatches {int_mismatch}; K6 max|err| {k6_err:.3e}, scaled by the plain "
+        "max|value| " + ", ".join(f"d_{k} {v:.3e}" for k, v in scaled.items())
+        + f" (tol rtol {K4_RTOL:g}, atol {K4_ATOL:g} on scaled values)")
+    return ({"duplicate_with_keys": k1_err, "render_surfel_tiles": k5_err,
+             "render_surfel_tiles_backward": k6_err}, fwd_args, bwd_args)
+
+
+def pairs_walked(ranges, final_T, n_contrib, W: int, H: int) -> tuple[int, int]:
+    """(forward, backward) (entry, pixel) pairs this data needs a compositor
+    to evaluate. Forward: a pixel whose final T >= 0.01 cannot have stopped
+    (the stop needs T (1 - alpha) < 1e-4 with alpha <= 0.99), so it
+    evaluates its tile's whole run; any other pixel at least its first
+    n_contrib + 1 entries. Backward: each pixel's positions below n_contrib."""
+    from gaustudio_torch.ops.composite import image_to_tiles
+
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    count = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    per_px = image_to_tiles(torch.ones((H, W), dtype=torch.int64, device=ranges.device), gx, gy)
+    run = count[:, None] * per_px  # 0 past the image's edge
+    nc = image_to_tiles(n_contrib.to(torch.int64), gx, gy)
+    open_px = image_to_tiles(final_T, gx, gy) >= 0.01
+    fwd = torch.where(open_px, run, torch.minimum(nc + 1, run))
+    return int(fwd.sum()), int(nc.sum())
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vanilla_bounds(pre, W: int, H: int) -> dict:
+    """{kernel: (bound ms, bound_by)} of K1-K4 on one vanilla view, for the
+    inputs of this run (K4 with the forward's n_contrib)."""
+    from gaustudio_torch.ops import binning, composite
+
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    n, T, P = pre.depths.shape[0], gx * gy, W * H
+    b = binning.bin_gaussians(pre, gx, gy)
+    L = b.num_rendered
+    out = composite.render_tiles(b.ranges, b.point_list, pre.means2d, pre.conic, pre.opacities,
+                                 pre.colors, pre.depths, gx, gy, W, H)
+    fwd_pairs, bwd_pairs = pairs_walked(b.ranges, out.final_T, out.n_contrib, W, H)
+    rect_tiles = int(((pre.rect_max - pre.rect_min).prod(dim=1) * (pre.tiles_touched > 0)).sum())
+    gauss_in = n * 40  # means2d, conic, opacity, colour, depth
+    return {
+        # means2d, conic, opacity, rects, tiles, depth in; key + index out
+        "duplicate_with_keys": bound_ms(n * 48 + L * 12,
+                                        2 * OPS["duplicate_with_keys"] * rect_tiles),
+        "identify_tile_ranges": bound_ms(L * 8 + T * 8, OPS["identify_tile_ranges"] * L),
+        "render_tiles": bound_ms(T * 8 + L * 4 + gauss_in + P * 36,
+                                 OPS["render_tiles"] * fwd_pairs),
+        "render_tiles_backward": bound_ms(T * 8 + L * 4 + 2 * gauss_in + P * 32,
+                                          OPS["render_tiles_backward"] * bwd_pairs),
+    }
+
+
+def surfel_bounds(bwd_args, W: int, H: int) -> dict:
+    """{kernel: (bound ms, bound_by)} of K5 and K6 on one surfel view."""
+    ranges, point_list, final_T, n_contrib = bwd_args[0], bwd_args[1], bwd_args[8], bwd_args[9]
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    n, T, P, L = bwd_args[5].shape[0], gx * gy, W * H, point_list.shape[0]
+    fwd_pairs, bwd_pairs = pairs_walked(ranges, final_T, n_contrib, W, H)
+    gauss_in = n * 84  # M, Dk, centre, opacity, colour, normal
+    return {
+        # 13 float outputs + 2 int outputs per pixel
+        "render_surfel_tiles": bound_ms(T * 8 + L * 4 + gauss_in + P * 52,
+                                        OPS["render_surfel_tiles"] * fwd_pairs),
+        # final_T, n_contrib and 10 cotangent values per pixel; 21 sums per surfel
+        "render_surfel_tiles_backward": bound_ms(T * 8 + L * 4 + 2 * gauss_in + P * 48,
+                                                 OPS["render_surfel_tiles_backward"] * bwd_pairs),
+    }
+
+
+def time_surfel_kernels(pre, fwd_args, bwd_args, W: int, H: int, card: str) -> dict:
+    """{kernel: (ms, plain_ms)} of K5 and K6 at the shapes of one view; also
+    prints K1's time without the cull on the same view."""
+    from gaustudio_torch.ops import binning, rasterize_surfel
+    from gaustudio_torch.ops import composite_surfel as cs
+
+    bin_in = rasterize_surfel.binning_input(pre)
+    gx = (W + 15) // 16
+    say("time", f"duplicate_with_keys without the cull {W}x{H} surfels: kernel "
+        f"{cuda_ms(lambda: binning.duplicate_with_keys(bin_in, gx, cull=False), 20):.4f} ms, "
+        f"plain {cuda_ms(lambda: binning.duplicate_with_keys_plain(bin_in, gx, cull=False), 5):.4f}"
+        f" ms | {card}")
+
+    times = {
+        "render_surfel_tiles": (cuda_ms(lambda: cs.render_surfel_tiles(*fwd_args), 20),
+                                cuda_ms(lambda: cs.render_surfel_tiles_plain(*fwd_args), 2)),
+        "render_surfel_tiles_backward": (
+            cuda_ms(lambda: cs.render_surfel_tiles_backward(*bwd_args), 20),
+            cuda_ms(lambda: cs.render_surfel_tiles_backward_plain(*bwd_args), 2)),
+    }
+    for name, (ms, plain_ms) in times.items():
+        say("time", f"{name} {W}x{H} ({fwd_args[1].shape[0]} entries): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms | {card}")
     return times
 
 
@@ -300,12 +566,14 @@ def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
 
 
 def _wrappers() -> dict:
-    from gaustudio_torch.ops import binning, composite
+    from gaustudio_torch.ops import binning, composite, composite_surfel
 
     return {"duplicate_with_keys": binning.duplicate_with_keys,
             "identify_tile_ranges": binning.identify_tile_ranges,
             "render_tiles": composite.render_tiles,
-            "render_tiles_backward": composite.render_tiles_backward}
+            "render_tiles_backward": composite.render_tiles_backward,
+            "render_surfel_tiles": composite_surfel.render_surfel_tiles,
+            "render_surfel_tiles_backward": composite_surfel.render_surfel_tiles_backward}
 
 
 def reset_counts() -> None:
@@ -420,13 +688,13 @@ def main_path_full(out_dir: str, ply: str, cams_path: str, device, card: str) ->
 # --- phases 6, 6b and 7: the training path -------------------------------
 
 
-def render_psnr(pcd, cams, device) -> list:
-    """PSNR of the vanilla renderer's image of ``pcd`` against each camera's
-    fixture image."""
+def render_psnr(pcd, cams, device, renderer_name: str = "vanilla_renderer") -> list:
+    """PSNR of the renderer's image of ``pcd`` against each camera's fixture
+    image."""
     from gaustudio_torch import renderers
     from gaustudio_torch.utils.image import load_image
 
-    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    renderer = renderers.make({"name": renderer_name}, device=device)
     got = []
     for cam in cams:
         out = renderer.render(cam, pcd)
@@ -435,15 +703,16 @@ def render_psnr(pcd, cams, device) -> list:
     return got
 
 
-def train_fixture(out_dir: str, device, card: str) -> dict:
-    """gs-train on the fixture's views from its sparse points; returns the
-    launch counts of the run."""
+def train_fixture(out_dir: str, device, card: str, surfel: bool = False) -> dict:
+    """gs-train (``--config 2dgs`` with ``surfel``) on the fixture's views from
+    its sparse points; returns the launch counts of the run."""
     from gaustudio_torch import models
     from gaustudio_torch.scripts import train as gs_train
-    from gaustudio_torch.utils.ply import fetch_ply
+    from gaustudio_torch.utils.ply import fetch_ply, read_ply
 
+    tag = "2dgs" if surfel else "vanilla"
     src = os.path.join(out_dir, "train_src")
-    out = os.path.join(out_dir, "train_out")
+    out = os.path.join(out_dir, f"train_out_{tag}")
     for d in (src, out):
         shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(os.path.join(FIXTURE, "images"), os.path.join(src, "images"))
@@ -456,37 +725,50 @@ def train_fixture(out_dir: str, device, card: str) -> dict:
     t0 = time.perf_counter()
     history = gs_train.main(["-s", src, "-o", out, "--dataset", "vanilla", "--iterations",
                              str(FIXTURE_TRAIN_ITERS), "--save_every", str(FIXTURE_TRAIN_ITERS),
-                             "--device", device.type, "--gpu", str(device.index or 0)])
+                             "--config", tag, "--device", device.type,
+                             "--gpu", str(device.index or 0)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     last = history[-1]
-    say("train", f"gs-train {FIXTURE_TRAIN_ITERS} iterations on mini_scene: {wall:.2f} s wall; "
-        f"loss {last['loss']:.5f}, train PSNR {last['psnr']:.3f}; launches {json.dumps(counts)}"
-        f" | {card}")
-    check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
+    say("train", f"gs-train --config {tag} {FIXTURE_TRAIN_ITERS} iterations on mini_scene: "
+        f"{wall:.2f} s wall; loss {last['loss']:.5f}, train PSNR {last['psnr']:.3f}; launches "
+        f"{json.dumps(counts)} | {card}")
+    path = (SURFEL_FORWARD + ("render_surfel_tiles_backward",) if surfel
+            else FORWARD + ("render_tiles_backward",))
+    check(all(counts[k] > 0 for k in path), f"a kernel was not launched: {counts}")
     check(math.isfinite(last["loss"]), f"non-finite loss {last['loss']}")
 
     cams = load_cameras(os.path.join(FIXTURE, "cameras.json"))
     xyz, rgb, _ = fetch_ply(sparse)
-    init = models.make({"name": "vanilla_pcd"}, device=device)
+    config = SURFEL_CONFIG if surfel else None
+    init = models.make(config or {"name": "vanilla_pcd"}, device=device)
     init.create_from_attribute(xyz=xyz, rgb=rgb)
     ply = os.path.join(out, "point_cloud", f"iteration_{FIXTURE_TRAIN_ITERS}", "point_cloud.ply")
-    trained = load_model(ply, 1, device)  # SH degree 1 from iteration 1000
+    if surfel:
+        scales = sorted(k for k in read_ply(ply)["vertex"] if k.startswith("scale"))
+        say("train", f"2DGS export scale properties: {scales}")
+        check(scales == ["scale_0", "scale_1"], f"2DGS export has scale properties {scales}")
+    trained = load_model(ply, 1, device, config)  # SH degree 1 from iteration 1000
     check(trained.num_points != init.num_points,
           f"densification left the point count at {trained.num_points}")
-    before, after = np.mean(render_psnr(init, cams, device)), np.mean(render_psnr(trained, cams, device))
-    say("train", f"points {init.num_points} -> {trained.num_points}; mean PSNR over "
-        f"{len(cams)} views: initial {before:.4f} dB, trained {after:.4f} dB (need +3)")
-    check(after >= before + 3.0, f"training gained {after - before:.3f} dB < 3 dB")
+    renderer = "surfel_renderer" if surfel else "vanilla_renderer"
+    gain = SURFEL_FIXTURE_GAIN_DB if surfel else 3.0
+    before = np.mean(render_psnr(init, cams, device, renderer))
+    after = np.mean(render_psnr(trained, cams, device, renderer))
+    say("train", f"{tag}: points {init.num_points} -> {trained.num_points}; mean PSNR over "
+        f"{len(cams)} views: initial {before:.4f} dB, trained {after:.4f} dB (need +{gain:g})")
+    check(after >= before + gain, f"{tag} training gained {after - before:.3f} dB < {gain} dB")
     return counts
 
 
-def train_kernels_vs_plain(device, card: str, steps: int = 100) -> None:
+def train_kernels_vs_plain(device, card: str, steps: int, surfel: bool = False) -> None:
     """The same training steps through the kernels and through the plain
-    versions: final mean PSNR within 0.1 dB."""
+    versions, from the fixture's model (its first two scale columns for
+    ``surfel``): final mean PSNR within 0.1 dB."""
     from gaustudio_torch import datasets
     from gaustudio_torch.pipelines import train as T
+    from gaustudio_torch.pipelines import train_surfel as TS
 
     ds = datasets.make({"name": "vanilla", "source_path": FIXTURE})
     pcd = load_model(os.path.join(FIXTURE, "gaussians.ply"), 0, device)
@@ -494,7 +776,17 @@ def train_kernels_vs_plain(device, card: str, steps: int = 100) -> None:
     cfg = T.TrainConfig(iterations=steps, densify_from_iter=10 ** 9,
                         opacity_reset_interval=10 ** 9, sh_increase_interval=10 ** 9,
                         lr_xyz_init=0.0008, lr_xyz_final=0.00008, lr_xyz_max_steps=steps)
-    trainer = T.Trainer(pcd, ds, cfg, device=device)
+    if surfel:
+        pcd._scale = pcd._scale[:, :2].contiguous()
+        scfg = TS.SurfelTrainConfig(base=cfg)
+        trainer = TS.SurfelTrainer(pcd, ds, scfg, device=device)
+        step = lambda state, batch, settings: TS.train_step_surfel(state, batch, settings, scfg)  # noqa: E731
+        render = TS.render_surfels_from_params
+    else:
+        trainer = T.Trainer(pcd, ds, cfg, device=device)
+        step = lambda state, batch, settings: T.train_step(state, batch, settings, cfg)  # noqa: E731
+        render = T.render_from_params
+    tag = "2dgs" if surfel else "vanilla"
     batches = [trainer.batch(c) for c in trainer.cameras]
     order = np.random.default_rng(0).integers(len(batches), size=steps)
     kernel_settings = trainer.settings()
@@ -504,7 +796,7 @@ def train_kernels_vs_plain(device, card: str, steps: int = 100) -> None:
         state = T.init_state(pcd, device)
         t0 = time.perf_counter()
         for i in order:
-            state, metrics = T.train_step(state, batches[i], settings, cfg)
+            state, metrics = step(state, batches[i], settings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         with torch.no_grad():
@@ -512,25 +804,25 @@ def train_kernels_vs_plain(device, card: str, steps: int = 100) -> None:
             for b in batches:
                 s = kernel_settings._replace(viewmatrix=b.viewmatrix, projmatrix=b.projmatrix,
                                              campos=b.campos, bg=torch.zeros(3, device=device))
-                out = T.render_from_params(state.params, state.active_sh_degree, s)
+                out = render(state.params, state.active_sh_degree, s)
                 scores.append(psnr(out["render"], b.gt_image))
         final[name] = (state, float(np.mean(scores)), wall)
-        say("train", f"{steps} steps from the fixture model with the {name} versions: "
+        say("train", f"{tag}: {steps} steps from the fixture model with the {name} versions: "
             f"{wall:.2f} s, last loss {float(metrics['loss']):.5f}, mean PSNR "
             f"{final[name][1]:.4f} dB | {card}")
     diff = {k: float((final["kernels"][0].params[k] - final["plain"][0].params[k]).abs().max())
             for k in T.PARAMS}
     gap = final["kernels"][1] - final["plain"][1]
-    say("train", f"kernels - plain PSNR {gap:+.4f} dB (tol 0.1); largest parameter difference "
-        + ", ".join(f"{k} {v:.3e}" for k, v in diff.items()))
-    check(abs(gap) <= 0.1, f"kernel and plain training differ by {gap:.4f} dB")
+    say("train", f"{tag}: kernels - plain PSNR {gap:+.4f} dB (tol 0.1); largest parameter "
+        "difference " + ", ".join(f"{k} {v:.3e}" for k, v in diff.items()))
+    check(abs(gap) <= 0.1, f"{tag}: kernel and plain training differ by {gap:.4f} dB")
 
 
-def step_breakdown(state, batch, settings, cfg) -> dict:
-    """train_step's stages, each between CUDA events: forward rasterize(),
-    loss, backward (and, inside it, the compositor's backward node: K4 and
+def step_breakdown(state, batch, settings, render, loss_fn, cfg) -> dict:
+    """One training step's stages, each between CUDA events: the forward
+    ``render`` (rasterize() or rasterize_surfels()), ``loss_fn(out, gt)``,
+    backward (and, inside it, the compositor's backward node: K4 or K6 and
     its wrapper), Adam with the statistics."""
-    from gaustudio_torch.ops import ssim
     from gaustudio_torch.pipelines import train as T
     from gaustudio_torch.pipelines.optimizers.general import adam_update, exp_lr_schedule
 
@@ -541,14 +833,12 @@ def step_breakdown(state, batch, settings, cfg) -> dict:
     ev[0].record()
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     offset = torch.zeros((state.num_points, 2), device=device, requires_grad=True)
-    out = T.render_from_params(params, state.active_sh_degree, s, means2d_offset=offset)
+    out = render(params, state.active_sh_degree, s, means2d_offset=offset)
     ev[1].record()
     node = out["render"].grad_fn  # the compositor's autograd node
     node.register_prehook(lambda grad_outputs: ev[5].record())
     node.register_hook(lambda grad_inputs, grad_outputs: ev[6].record())
-    bg = torch.zeros(3, device=device)
-    pred = out["render"] + bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0])
-    loss = ssim.rgb_loss(pred, batch.gt_image, cfg.lambda_dssim)
+    loss = loss_fn(out, batch.gt_image)
     ev[2].record()
     grads = torch.autograd.grad(loss, [params[k] for k in T.PARAMS] + [offset])
     ev[3].record()
@@ -563,22 +853,25 @@ def step_breakdown(state, batch, settings, cfg) -> dict:
         adam_update(dict(zip(T.PARAMS, grads[:-1])), state.opt, state.params, lrs)
     ev[4].record()
     torch.cuda.synchronize()
-    names = ("forward rasterize()", "loss", "backward", "Adam + statistics")
+    names = ("forward", "loss", "backward", "Adam + statistics")
     times = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    times["K4 + wrapper inside backward"] = ev[5].elapsed_time(ev[6])
+    times["compositor backward node inside backward"] = ev[5].elapsed_time(ev[6])
     return times
 
 
 def train_at_scale(out_dir: str, ply: str, cams_path: str, device, card: str, label: str,
-                   steps: int = 30) -> None:
+                   steps: int = 30, surfel: bool = False) -> None:
     """``steps`` training steps and one densify from a seeded jitter of a
     scene, against ground truth rendered from the scene with the kernels."""
     from gaustudio_torch import renderers
+    from gaustudio_torch.ops import ssim
     from gaustudio_torch.pipelines import train as T
+    from gaustudio_torch.pipelines import train_surfel as TS
 
-    pcd = load_model(ply, 3, device)
+    pcd = load_model(ply, 3, device, SURFEL_CONFIG if surfel else None)
     cams = load_cameras(cams_path)
-    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    renderer = renderers.make({"name": "surfel_renderer" if surfel else "vanilla_renderer"},
+                              device=device)
     for cam in cams:
         cam.image = renderer.render(cam, pcd)["render"].permute(1, 2, 0).clone()
     gen = torch.Generator(device=device).manual_seed(0)
@@ -589,7 +882,22 @@ def train_at_scale(out_dir: str, ply: str, cams_path: str, device, card: str, la
         cameras_extent = 2.0
 
     cfg = T.TrainConfig(densify_grad_threshold=1e-5)
-    trainer = T.Trainer(pcd, _Views(cams), cfg, device=device)
+    zero_bg = torch.zeros(3, device=device)
+    if surfel:
+        scfg = TS.SurfelTrainConfig(base=cfg)
+        trainer = TS.SurfelTrainer(pcd, _Views(cams), scfg, device=device)
+        step = lambda state, batch: TS.train_step_surfel(state, batch, settings, scfg)  # noqa: E731
+        render = TS.render_surfels_from_params
+        loss_fn = lambda out, gt: TS.surfel_loss(out, gt, zero_bg, scfg)[0]  # noqa: E731
+        backward_kernel = "render_surfel_tiles_backward"
+    else:
+        trainer = T.Trainer(pcd, _Views(cams), cfg, device=device)
+        step = lambda state, batch: T.train_step(state, batch, settings, cfg)  # noqa: E731
+        render = T.render_from_params
+        loss_fn = lambda out, gt: ssim.rgb_loss(  # noqa: E731
+            out["render"] + zero_bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0]),
+            gt, cfg.lambda_dssim)
+        backward_kernel = "render_tiles_backward"
     state = trainer.state._replace(active_sh_degree=3)
     batches = [trainer.batch(c) for c in cams]
     settings = trainer.settings()
@@ -599,14 +907,15 @@ def train_at_scale(out_dir: str, ply: str, cams_path: str, device, card: str, la
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = T.train_step(state, batches[i % len(batches)], settings, cfg)
+        state, metrics = step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-    k4_launches = read_counts()["render_tiles_backward"]
-    check(k4_launches == steps, f"K4 launched {k4_launches} times in {steps} steps")
+    bwd_launches = read_counts()[backward_kernel]
+    check(bwd_launches == steps, f"{backward_kernel} launched {bwd_launches} times in {steps} steps")
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
-    runs = [step_breakdown(state, batches[i % len(batches)], settings, cfg) for i in range(5)]
+    runs = [step_breakdown(state, batches[i % len(batches)], settings, render, loss_fn, cfg)
+            for i in range(5)]
     breakdown = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     n_before = state.num_points
     torch.cuda.synchronize()
@@ -619,12 +928,83 @@ def train_at_scale(out_dir: str, ply: str, cams_path: str, device, card: str, la
     say("train", f"{label}: {W}x{H}, {n_before} Gaussians, SH 3: loss {losses[0]:.5f} (step 1) "
         f"-> {losses[-1]:.5f} (step {steps}); {statistics.median(wall[5:]):.3f} ms/it (median "
         f"of steps 6-{steps}, each fenced by synchronize; min {min(wall[5:]):.3f}, max "
-        f"{max(wall[5:]):.3f}); K4 launches {k4_launches} | {card}")
+        f"{max(wall[5:]):.3f}); {backward_kernel} launches {bwd_launches} | {card}")
     say("train", f"{label}: one step by stage (CUDA events, median of 5 steps, ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()) + f" | {card}")
     say("train", f"{label}: densify_and_prune {densify_ms:.3f} ms: {n_before} -> "
         f"{state.num_points} points ({info['n_clone']} clones, {info['n_split']} splits, "
         f"{info['n_prune_opacity'] + info['n_prune_big']} pruned) | {card}")
+
+
+# --- phase 8: the 2DGS render path ----------------------------------------
+
+
+def main_path_surfel(out_dir: str, ply: str, cams_path: str, device, card: str) -> dict:
+    """gs-render --config 2dgs of the 200k-surfel model from three 1080p
+    cameras; rasterize_surfels() warm against its plain path."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.ops import rasterize_surfel
+    from gaustudio_torch.scripts import render as gs_render
+    from gaustudio_torch.utils.image import read_png
+
+    reset_counts()
+    t0 = time.perf_counter()
+    images = gs_render.main(["-m", ply, "-s", cams_path, "--sh", "3", "--config", "2dgs",
+                             "--device", "cuda", "-o", os.path.join(out_dir, "surfel")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    say("surfel", f"gs-render --config 2dgs {FULL_VIEWS} views of {FULL_W}x{FULL_H}, {SURFEL_N} "
+        f"surfels: {wall:.2f} s wall (load, render, PNG); launches {json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in SURFEL_FORWARD), f"a kernel was not launched: {counts}")
+    pngs = sorted(os.listdir(images))
+    check(len(pngs) == FULL_VIEWS, pngs)
+    img = read_png(os.path.join(images, pngs[0]))
+    check(img.shape == (FULL_H, FULL_W, 3), img.shape)
+
+    pcd = load_model(ply, 3, device, SURFEL_CONFIG)
+    cam = load_cameras(cams_path)[1]
+    renderer = renderers.make({"name": "surfel_renderer"}, device=device)
+    out = renderer.render(cam, pcd)
+    rgb, alpha = out["render"], out["rendered_final_opacity"]
+    check(rgb.shape == (3, FULL_H, FULL_W) and torch.isfinite(rgb).all(),
+          f"render {tuple(rgb.shape)} is not a finite [3, {FULL_H}, {FULL_W}] image")
+    for key in ("rendered_normal", "rendered_depth", "rendered_dist_m2"):
+        check(torch.isfinite(out[key]).all(), f"non-finite {key}")
+    lit = float((alpha > 0.01).float().mean())
+    say("surfel", f"lit fraction (alpha > 0.01) {lit:.4f} (guard > 0.5), mean colour "
+        f"{float(rgb.mean()):.4f}, {out['num_rendered']} entries")
+    check(lit > 0.5, f"surfel render mostly empty: {lit:.3f} lit")
+
+    xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
+    st = renderer.make_settings(cam, pcd, device)
+
+    def run(settings):
+        return rasterize_surfel.rasterize_surfels(xyz, opacity, settings, scales=scales,
+                                                  rotations=rotations, shs=shs,
+                                                  active_sh_degree=3)
+
+    plain = st._replace(backend="plain")
+    with torch.inference_mode():
+        ref = run(plain)
+        got = run(st)
+        err = float((got["render"] - ref["render"]).abs().max())
+        check(err <= 1e-4, f"rasterize_surfels kernels vs plain: max|err| {err}")
+        timings = {}
+        for name, settings, iters in (("kernels", st, 20), ("plain", plain, 2)):
+            run(settings)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run(settings)
+            torch.cuda.synchronize()
+            timings[name] = (time.perf_counter() - t0) / iters
+    mpix = FULL_W * FULL_H / 1e6
+    say("time", f"rasterize_surfels {FULL_W}x{FULL_H} {SURFEL_N} surfels SH3: kernels "
+        f"{timings['kernels'] * 1e3:.3f} ms = {mpix / timings['kernels']:.2f} MPix/s; plain "
+        f"{timings['plain'] * 1e3:.3f} ms = {mpix / timings['plain']:.3f} MPix/s; "
+        f"max|err| {err:.2e} | {card}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -666,14 +1046,19 @@ def main(argv=None) -> int:
 
     # phase 3: kernels against their plain versions
     from gaustudio_torch import renderers
+    from gaustudio_torch.ops import composite
 
     renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    surfel_renderer = renderers.make({"name": "surfel_renderer"}, device=device)
     mini_pcd = load_model(os.path.join(FIXTURE, "gaussians.ply"), 0, device)
     mini_cam = load_cameras(os.path.join(FIXTURE, "cameras.json"))[0]
     mini_pre = view_preprocess(renderer, mini_cam, mini_pcd)
     errs = compare_kernels(mini_pre, mini_cam.image_width, mini_cam.image_height)
     errs["render_tiles_backward"], _ = compare_backward(
         mini_pre, mini_cam.image_width, mini_cam.image_height, seed=0)
+    mini_surfel_errs, _, _ = compare_surfel_kernels(
+        view_preprocess_surfel(surfel_renderer, mini_cam, mini_pcd), mini_cam.image_width,
+        mini_cam.image_height, seed=2)
     ply, cams_path = write_full_scene(args.out)
     full_pcd = load_model(ply, 3, device)
     full_cam = load_cameras(cams_path)[1]
@@ -683,27 +1068,39 @@ def main(argv=None) -> int:
     errs = {k: max(errs[k], full_errs[k]) for k in errs}
     times = time_kernels(full_pre, FULL_W, FULL_H, card,
                          lambda: view_preprocess(renderer, full_cam, full_pcd))
-    from gaustudio_torch.ops import composite
-
     times["render_tiles_backward"] = (
         cuda_ms(lambda: composite.render_tiles_backward(*k4_args), 20),
         cuda_ms(lambda: composite.render_tiles_backward_plain(*k4_args), 2))
     say("time", f"render_tiles_backward {FULL_W}x{FULL_H}: kernel "
         f"{times['render_tiles_backward'][0]:.4f} ms, plain "
         f"{times['render_tiles_backward'][1]:.4f} ms | {card}")
+    bounds = vanilla_bounds(full_pre, FULL_W, FULL_H)
     del full_pcd, full_pre, mini_pre, k4_args
+
+    surfel_ply, surfel_cams = write_surfel_scene(args.out)
+    surfel_pcd = load_model(surfel_ply, 3, device, SURFEL_CONFIG)
+    surfel_pre = view_preprocess_surfel(surfel_renderer, load_cameras(surfel_cams)[1], surfel_pcd)
+    surfel_errs, k5_args, k6_args = compare_surfel_kernels(surfel_pre, FULL_W, FULL_H, seed=3)
+    errs["duplicate_with_keys"] = max(errs["duplicate_with_keys"], mini_surfel_errs[
+        "duplicate_with_keys"], surfel_errs["duplicate_with_keys"])
+    for k in ("render_surfel_tiles", "render_surfel_tiles_backward"):
+        errs[k] = max(mini_surfel_errs[k], surfel_errs[k])
+    times.update(time_surfel_kernels(surfel_pre, k5_args, k6_args, FULL_W, FULL_H, card))
+    bounds.update(surfel_bounds(k6_args, FULL_W, FULL_H))
+    del surfel_pcd, surfel_pre, k5_args, k6_args
 
     # phase 4: the render path on the fixture, against GOLDEN.json
     main_path_fixture(args.out, device)
 
     # phase 5: the render path at full width
-    render_counts = main_path_full(args.out, ply, cams_path, device, card)
+    path_counts = [main_path_full(args.out, ply, cams_path, device, card)]
 
     # phase 6: the training path on the fixture
-    train_counts = train_fixture(args.out, device, card)
+    path_counts.append(train_fixture(args.out, device, card))
 
-    # phase 6b: the kernels against the plain versions inside training
-    train_kernels_vs_plain(device, card)
+    # phase 6b: the kernels against the plain versions inside training (the
+    # plain half is launch-bound, ~2 s a step: 50 steps keep the script short)
+    train_kernels_vs_plain(device, card, steps=50)
 
     # phase 7: training at the two training shapes
     train_at_scale(args.out, ply, cams_path, device, card, "1080p/300k")
@@ -711,12 +1108,28 @@ def main(argv=None) -> int:
                                              name="small")
     train_at_scale(args.out, small_ply, small_cams, device, card, "512/100k")
 
+    # phase 8: the 2DGS render path at full width
+    path_counts.append(main_path_surfel(args.out, surfel_ply, surfel_cams, device, card))
+
+    # phase 9: the 2DGS training path on the fixture
+    path_counts.append(train_fixture(args.out, device, card, surfel=True))
+
+    # phase 9b: the kernels against the plain versions inside 2DGS training
+    train_kernels_vs_plain(device, card, steps=20, surfel=True)
+
+    # phase 10: 2DGS training at 512x512 / 60k surfels
+    st_ply, st_cams = write_surfel_train_scene(args.out)
+    train_at_scale(args.out, st_ply, st_cams, device, card, "2DGS 512/60k", surfel=True)
+
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": render_counts[name] + train_counts[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": sum(c[name] for c in path_counts), "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1],
+         "library_ms": times[name][2] if len(times[name]) > 2 else None}
         for name, (src, replaces) in KERNELS.items()
     ]}
+    check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,9 @@
 // stable sort of the keys gives (tile, depth) order with ties in Gaussian
 // order. Both passes are bound by the cull arithmetic of the largest rects
 // (one thread walks a whole rect) and by the 12 bytes written per entry.
+// With cull = 0 (2DGS surfels, whose support is not an ellipse in pixel
+// space: fused_expand(cull=False)) every tile of the rect is kept and the
+// conic and opacity are not read.
 //
 // K2 replaces gaustudio_tpu/ops/binning_fast.py _ranges_kernel, a sequential
 // boundary walk over the sorted keys. Here one thread per sorted entry
@@ -88,11 +91,13 @@ __global__ void count_tiles_kernel(
     int n, const float* __restrict__ means2d, const float* __restrict__ conic,
     const float* __restrict__ opacity, const int* __restrict__ rect_min,
     const int* __restrict__ rect_max, const int* __restrict__ tiles_touched,
-    int* __restrict__ counts) {
+    int cull, int* __restrict__ counts) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= n) return;
   int cnt = 0;
-  if (tiles_touched[g] > 0) {
+  if (!cull) {
+    cnt = max(tiles_touched[g], 0);
+  } else if (tiles_touched[g] > 0) {
     const Splat s = load_splat(g, means2d, conic, opacity, rect_min, rect_max);
     for (int ty = s.y0; ty < s.y1; ++ty)
       for (int tx = s.x0; tx < s.x1; ++tx)
@@ -105,7 +110,7 @@ __global__ void write_keys_kernel(
     int n, int grid_x, const float* __restrict__ means2d,
     const float* __restrict__ conic, const float* __restrict__ opacity,
     const int* __restrict__ rect_min, const int* __restrict__ rect_max,
-    const float* __restrict__ depths, const int* __restrict__ counts,
+    const float* __restrict__ depths, int cull, const int* __restrict__ counts,
     const int64_t* __restrict__ offsets, int64_t* __restrict__ keys,
     int* __restrict__ gids) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -115,7 +120,7 @@ __global__ void write_keys_kernel(
   int64_t off = offsets[g] - counts[g];  // offsets is the inclusive sum
   for (int ty = s.y0; ty < s.y1; ++ty) {
     for (int tx = s.x0; tx < s.x1; ++tx) {
-      if (!tile_max_alpha_keep(s.mx, s.my, s.a, s.b, s.c, s.op, tx, ty)) continue;
+      if (cull && !tile_max_alpha_keep(s.mx, s.my, s.a, s.b, s.c, s.op, tx, ty)) continue;
       keys[off] = ((int64_t)(ty * grid_x + tx) << 32) | dbits;
       gids[off] = g;
       ++off;
@@ -145,23 +150,23 @@ static inline int blocks_for(int n, int threads) { return (n + threads - 1) / th
 GS_API int gs_count_tiles(int n, const float* means2d, const float* conic,
                           const float* opacity, const int* rect_min,
                           const int* rect_max, const int* tiles_touched,
-                          int* counts, void* stream) {
+                          int cull, int* counts, void* stream) {
   if (n > 0)
     count_tiles_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        n, means2d, conic, opacity, rect_min, rect_max, tiles_touched, counts);
+        n, means2d, conic, opacity, rect_min, rect_max, tiles_touched, cull, counts);
   return gs_last_error();
 }
 
 GS_API int gs_write_keys(int n, int grid_x, const float* means2d,
                          const float* conic, const float* opacity,
                          const int* rect_min, const int* rect_max,
-                         const float* depths, const int* counts,
+                         const float* depths, int cull, const int* counts,
                          const int64_t* offsets, int64_t* keys, int* gids,
                          void* stream) {
   if (n > 0)
     write_keys_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        n, grid_x, means2d, conic, opacity, rect_min, rect_max, depths, counts,
-        offsets, keys, gids);
+        n, grid_x, means2d, conic, opacity, rect_min, rect_max, depths, cull,
+        counts, offsets, keys, gids);
   return gs_last_error();
 }
 

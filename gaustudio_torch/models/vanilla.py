@@ -1,6 +1,6 @@
 """VanillaPointCloud — the standard 3DGS model (port of gaustudio_tpu/models/vanilla.py).
 
-Attributes xyz(3), opacity(1), f_dc(3), f_rest(45), scale(3), rot(4) with
+Attributes xyz(3), opacity(1), f_dc(3), f_rest(45), scale(3; 2 for 2DGS), rot(4) with
 exp / sigmoid / normalize activations and the Inria checkpoint layout
 (x, y, z, nx, ny, nz, f_dc_*, f_rest_*, opacity, scale_*, rot_*).
 """
@@ -78,13 +78,15 @@ class VanillaPointCloud(BasePointCloud):
     def create_from_attribute(self, xyz, rgb=None, scale=None, rot=None, opacity=None,
                               **_):
         """Initial model of a point cloud: RGB -> SH dc (higher bands 0),
-        log-scale from the mean squared distance to the 3 nearest neighbours,
+        log-scale from the mean squared distance to the 3 nearest neighbours
+        (as wide as the config's ``attributes.scale``),
         identity quaternions, opacity inverse_sigmoid(0.1)."""
         xyz = np.asarray(xyz, np.float32)
         n = xyz.shape[0]
         rgb = np.ones_like(xyz) if rgb is None else np.asarray(rgb, np.float32)
-        if scale is None:
-            scale = np.repeat(np.log(np.sqrt(calculate_dist2(xyz) + 1e-7))[:, None], 3, axis=1)
+        if scale is None:  # 3 columns, or 2 for 2DGS surfels (attributes.scale)
+            sdim = int(self.config.get("attributes", {}).get("scale", 3))
+            scale = np.repeat(np.log(np.sqrt(calculate_dist2(xyz) + 1e-7))[:, None], sdim, axis=1)
         if rot is None:
             rot = np.zeros((n, 4), np.float32)
             rot[:, 0] = 1.0

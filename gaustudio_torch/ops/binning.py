@@ -7,6 +7,8 @@ its plain PyTorch version:
 * K1 :func:`duplicate_with_keys` (replaces binning_fast._fused_expand_kernel):
   one entry per (Gaussian, tile) of the Gaussian's tight rect that survives
   the exact max-alpha tile cull, keyed ``tile << 32 | float_bits(depth)``.
+  With ``cull=False`` (2DGS surfels, as ``fused_expand(cull=False)`` and the
+  golden ``binning.bin_gaussians``) every tile of the rect is kept.
 * K2 :func:`identify_tile_ranges` (replaces binning_fast._ranges_kernel):
   the [start, end) run of every tile in the sorted entries.
 
@@ -31,7 +33,7 @@ from gaustudio_torch.utils import kernels
 class Binned(NamedTuple):
     point_list: torch.Tensor  # [L] int32 Gaussian index of each sorted entry
     ranges: torch.Tensor  # [T, 2] int32 [start, end) of each tile (0, 0 if empty)
-    num_rendered: int  # L, entries after the tile cull
+    num_rendered: int  # L, entries after the tile cull (if any)
 
 
 def tile_max_alpha_keep(mx, my, a, b, c, op, tx, ty):
@@ -75,7 +77,7 @@ def _depth_bits(depths):
     return depths.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
-def duplicate_with_keys_plain(pre: Preprocessed, grid_x: int):
+def duplicate_with_keys_plain(pre: Preprocessed, grid_x: int, cull: bool = True):
     """Plain version of K1 -> (keys [L] int64, gids [L] int32), Gaussian-major,
     tiles in row-major rect order."""
     device = pre.depths.device
@@ -88,17 +90,19 @@ def duplicate_with_keys_plain(pre: Preprocessed, grid_x: int):
     rect_w = torch.clamp_min(pre.rect_max[g, 0].to(torch.int64) - rmin[:, 0], 1)
     tx = rmin[:, 0] + j % rect_w
     ty = rmin[:, 1] + j // rect_w
+    keys = ((ty * grid_x + tx) << 32) | _depth_bits(pre.depths)[g]
+    if not cull:
+        return keys, g.to(torch.int32)
     keep = tile_max_alpha_keep(
         pre.means2d[g, 0], pre.means2d[g, 1], pre.conic[g, 0], pre.conic[g, 1],
         pre.conic[g, 2], pre.opacities[g], tx, ty)
-    keys = ((ty * grid_x + tx) << 32) | _depth_bits(pre.depths)[g]
     return keys[keep], g[keep].to(torch.int32)
 
 
-def duplicate_with_keys(pre: Preprocessed, grid_x: int):
+def duplicate_with_keys(pre: Preprocessed, grid_x: int, cull: bool = True):
     """K1: (keys [L] int64, gids [L] int32), the kernel for CUDA tensors."""
     if not pre.means2d.is_cuda:
-        return duplicate_with_keys_plain(pre, grid_x)
+        return duplicate_with_keys_plain(pre, grid_x, cull)
     args = (pre.means2d.float().contiguous(), pre.conic.float().contiguous(),
             pre.opacities.float().contiguous(), pre.rect_min.int().contiguous(),
             pre.rect_max.int().contiguous())
@@ -113,7 +117,7 @@ def duplicate_with_keys(pre: Preprocessed, grid_x: int):
     lib = kernels.load()
     ptrs = [t.data_ptr() for t in args]
     counts = torch.empty(n, dtype=torch.int32, device=depths.device)
-    kernels.check(lib.gs_count_tiles(n, *ptrs, tiles.data_ptr(), counts.data_ptr(),
+    kernels.check(lib.gs_count_tiles(n, *ptrs, tiles.data_ptr(), int(cull), counts.data_ptr(),
                                      kernels.stream()), "gs_count_tiles")
     offsets = torch.cumsum(counts, 0)  # int64, inclusive
     num_rendered = int(offsets[-1]) if n else 0
@@ -121,7 +125,8 @@ def duplicate_with_keys(pre: Preprocessed, grid_x: int):
         raise ValueError(f"duplicate_with_keys: {num_rendered} entries exceed int32")
     keys = torch.empty(num_rendered, dtype=torch.int64, device=depths.device)
     gids = torch.empty(num_rendered, dtype=torch.int32, device=depths.device)
-    kernels.check(lib.gs_write_keys(n, grid_x, *ptrs, depths.data_ptr(), counts.data_ptr(),
+    kernels.check(lib.gs_write_keys(n, grid_x, *ptrs, depths.data_ptr(), int(cull),
+                                    counts.data_ptr(),
                                     offsets.data_ptr(), keys.data_ptr(), gids.data_ptr(),
                                     kernels.stream()), "gs_write_keys")
     duplicate_with_keys.launches += 1
@@ -163,14 +168,16 @@ def identify_tile_ranges(sorted_keys: torch.Tensor, num_tiles: int) -> torch.Ten
 identify_tile_ranges.launches = 0
 
 
-def bin_gaussians(pre: Preprocessed, grid_x: int, grid_y: int, plain: bool = False) -> Binned:
+def bin_gaussians(pre: Preprocessed, grid_x: int, grid_y: int, plain: bool = False,
+                  cull: bool = True) -> Binned:
     """Duplicate, sort and range the (Gaussian, tile) entries.
 
-    ``plain=True`` runs the plain versions whatever the device.
+    ``plain=True`` runs the plain versions whatever the device; ``cull=False``
+    keeps every tile of each rect (surfels).
     """
     dup = duplicate_with_keys_plain if plain else duplicate_with_keys
     ranges_fn = identify_tile_ranges_plain if plain else identify_tile_ranges
-    keys, gids = dup(pre, grid_x)
+    keys, gids = dup(pre, grid_x, cull)
     sorted_keys, order = torch.sort(keys, stable=True)
     return Binned(
         point_list=gids[order],

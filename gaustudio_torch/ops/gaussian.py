@@ -76,6 +76,14 @@ def transform_points(points, mat4):
     )
 
 
+def transform_dirs(dirs, mat):
+    """dirs @ mat for [..., 3] x [3, C] (no translation row), written out per
+    component."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    return torch.stack(
+        [x * mat[0, i] + y * mat[1, i] + z * mat[2, i] for i in range(mat.shape[1])], dim=-1)
+
+
 def _signed_clamp(v, floor):
     """Keep |v| >= floor with v's sign, so 1/v stays finite on culled rows."""
     return torch.where(v >= 0.0, torch.clamp_min(v, floor), torch.clamp_max(v, -floor))

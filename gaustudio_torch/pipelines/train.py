@@ -70,7 +70,7 @@ class TrainState(NamedTuple):
     """Training state: one row per live Gaussian in every per-row tensor."""
 
     params: Dict[str, torch.Tensor]  # xyz [N,3], f_dc [N,3], f_rest [N,45],
-    # opacity [N,1], scale [N,3], rot [N,4]
+    # opacity [N,1], scale [N,3] (or [N,2] for 2DGS surfels), rot [N,4]
     opt: AdamState
     step: int
     xyz_grad_accum: torch.Tensor  # [N]
@@ -173,17 +173,30 @@ def train_step(state: TrainState, batch: CameraBatch, settings: RasterizeSetting
     bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
     pred = out["render"] + bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0])
     loss = ssim_ops.rgb_loss(pred, batch.gt_image, cfg.lambda_dssim)
+    metrics = {
+        "loss": loss.detach(),
+        "psnr": ssim_ops.psnr(out["render"].detach(), batch.gt_image),
+        "num_points": state.num_points,
+        "num_rendered": out["num_rendered"],
+    }
+    return optimise(state, params, offset, loss, out["radii"], cfg), metrics
+
+
+def optimise(state: TrainState, params, offset, loss, radii, cfg: TrainConfig) -> TrainState:
+    """The gradients of ``loss`` in ``params`` and ``offset`` (the viewspace
+    points) -> the densification statistics of the visible rows and one Adam
+    step; returns the next state."""
     leaves = [params[k] for k in PARAMS] + [offset]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     vs_grads = grads.pop()
 
     with torch.no_grad():
-        visible = out["radii"] > 0
+        visible = radii > 0
         xyz_grad_accum = state.xyz_grad_accum + torch.where(
             visible, torch.linalg.vector_norm(vs_grads, dim=-1), 0.0)
         denom = state.denom + visible.to(torch.float32)
-        max_radii2d = torch.maximum(state.max_radii2d, out["radii"].to(torch.float32))
+        max_radii2d = torch.maximum(state.max_radii2d, radii.to(torch.float32))
         lrs = {
             "xyz": exp_lr_schedule(cfg.lr_xyz_init, cfg.lr_xyz_final,
                                    cfg.lr_xyz_max_steps)(state.step),
@@ -192,15 +205,8 @@ def train_step(state: TrainState, batch: CameraBatch, settings: RasterizeSetting
         }
         new_params, new_opt = adam_update(dict(zip(PARAMS, grads)), state.opt,
                                           state.params, lrs)
-        metrics = {
-            "loss": loss.detach(),
-            "psnr": ssim_ops.psnr(out["render"], batch.gt_image),
-            "num_points": state.num_points,
-            "num_rendered": out["num_rendered"],
-        }
     return state._replace(params=new_params, opt=new_opt, step=state.step + 1,
-                          xyz_grad_accum=xyz_grad_accum, denom=denom,
-                          max_radii2d=max_radii2d), metrics
+                          xyz_grad_accum=xyz_grad_accum, denom=denom, max_radii2d=max_radii2d)
 
 
 @torch.no_grad()
@@ -234,9 +240,13 @@ def densify_and_prune(state: TrainState, generator: torch.Generator, extent: flo
 
     clone_src = torch.nonzero(clone_mask).squeeze(1)
     split_src = torch.nonzero(split_mask).squeeze(1).repeat(2)  # first children, then second
-    # x_child = x + R (eps * scale), scale_child = scale / 1.6
-    eps = torch.randn((split_src.shape[0], 3), generator=generator, device=device)
+    # x_child = x + R (eps * scale), scale_child = scale / 1.6; a 2DGS surfel's
+    # 2-column scale gets a zero third column
+    sdim = p["scale"].shape[1]
+    eps = torch.randn((split_src.shape[0], sdim), generator=generator, device=device)
     eps = eps * scale_act[split_src]
+    if sdim < 3:
+        eps = torch.cat([eps, eps.new_zeros((eps.shape[0], 3 - sdim))], dim=1)
     R = quat_to_rotmat(p["rot"][split_src], normalize=True)
     new_rows = {k: torch.cat([v[survive], v[clone_src], v[split_src]]) for k, v in p.items()}
     n_keep, n_clone = int(survive.sum()), clone_src.shape[0]
@@ -304,6 +314,10 @@ class Trainer:
                            campos=to(camera.camera_center),
                            gt_image=to(camera.image).permute(2, 0, 1).contiguous())
 
+    def step(self, batch: CameraBatch, settings: RasterizeSettings):
+        """One optimisation step of the current state: (new state, metrics)."""
+        return train_step(self.state, batch, settings, self.cfg)
+
     def restore(self, path: str) -> None:
         self.state = load_checkpoint(path, self.device)
 
@@ -323,7 +337,7 @@ class Trainer:
         history = []
         try:
             for it in range(self.state.step + 1, iters + 1):
-                self.state, metrics = train_step(self.state, next_batch(), settings, cfg)
+                self.state, metrics = self.step(next_batch(), settings)
 
                 if it % cfg.sh_increase_interval == 0:
                     self.state = oneup_sh_degree(self.state, cfg.max_sh_degree)

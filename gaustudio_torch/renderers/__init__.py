@@ -1,4 +1,4 @@
-"""Renderers registry (port of gaustudio_tpu/renderers/__init__.py; vanilla only)."""
+"""Renderers registry (port of gaustudio_tpu/renderers/__init__.py; vanilla and surfel)."""
 
 from gaustudio_torch.registry import Registry
 
@@ -7,3 +7,4 @@ register = _registry.register
 make = _registry.make
 
 from gaustudio_torch.renderers import vanilla  # noqa: E402,F401
+from gaustudio_torch.renderers import surfel  # noqa: E402,F401

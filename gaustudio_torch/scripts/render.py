@@ -1,7 +1,9 @@
 """gs-render: render a trained model from the cameras of a cameras.json.
 
 Port of gaustudio_tpu/scripts/render.py. Run as
-``python -m gaustudio_torch.scripts.render -m <model> [-s cameras.json]``.
+``python -m gaustudio_torch.scripts.render -m <model> [-s cameras.json]
+[--config vanilla|2dgs]``; ``--config 2dgs`` renders 2DGS surfels through
+the SurfelRenderer.
 Renders on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is
 asked for. Writes one PNG per camera to ``<output>/images``.
 """

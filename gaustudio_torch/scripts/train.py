@@ -1,13 +1,16 @@
-"""gs-train: vanilla 3DGS training (port of gaustudio_tpu/scripts/train.py).
+"""gs-train: 3DGS and 2DGS training (port of gaustudio_tpu/scripts/train.py).
 
-    python -m gaustudio_torch.scripts.train -s <scene> -o <out> --dataset vanilla|nerf
+    python -m gaustudio_torch.scripts.train -s <scene> -o <out> --dataset vanilla|nerf \
+        [--config vanilla|2dgs]
 
 Trains on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
 for. Starts from ``<scene>/sparse/0/points3D.ply`` when it exists, else from
 ``--init_points`` random points in the camera extent. Writes the Inria
 layout that gs-render reads: ``point_cloud/iteration_N/point_cloud.ply``
-and ``cameras.json``. Multi-device training, 2DGS, scaffold and the COLMAP
-dataset belong to later slices of the port and raise NotImplementedError.
+and ``cameras.json``. A config whose renderer is ``surfel_renderer``
+(``--config 2dgs``) trains 2DGS surfels with the SurfelTrainer. Multi-device
+training, scaffold and the COLMAP dataset belong to later slices of the port
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,9 +34,7 @@ def _refuse_deferred(args, config) -> None:
             "--gs_shards: multi-device training comes to the port with slice 8")
     model = config["model"]["pointcloud"].get("name", "vanilla_pcd")
     renderer = config.get("renderer", {}).get("name", "vanilla_renderer")
-    if renderer == "surfel_renderer":
-        raise NotImplementedError("2DGS (surfel) training comes to the port with slice 4")
-    if model != "vanilla_pcd" or renderer != "vanilla_renderer":
+    if model != "vanilla_pcd" or renderer not in ("vanilla_renderer", "surfel_renderer"):
         raise NotImplementedError(
             f"model {model!r} / renderer {renderer!r}: the model and renderer variants "
             "(scaffold, mip, gsplat) come to the port with slice 5")
@@ -74,8 +75,8 @@ def main(argv=None):
     config_path = args.config if os.path.exists(args.config) else builtin_config_path(args.config)
     if not os.path.exists(config_path):
         raise NotImplementedError(
-            f"--config {args.config}: the port ships only the vanilla config; 2DGS comes "
-            "with slice 4, the other model and renderer variants with slice 5")
+            f"--config {args.config}: the port ships the vanilla and 2dgs configs; the other "
+            "model and renderer variants come with slice 5")
     config = load_config(config_path, cli_args=extras)
     _refuse_deferred(args, config)
     device = _device(args)
@@ -111,7 +112,15 @@ def main(argv=None):
         percent_dense=float(tr_conf.get("percent_dense", 0.01)),
         white_background=args.white_background,
     )
-    trainer = T.Trainer(pcd, dataset, cfg, seed=args.seed, device=device)
+    if config.get("renderer", {}).get("name") == "surfel_renderer":
+        from gaustudio_torch.pipelines import train_surfel as TS
+
+        scfg = TS.SurfelTrainConfig(base=cfg,
+                                    lambda_normal=float(tr_conf.get("lambda_normal", 0.05)),
+                                    lambda_dist=float(tr_conf.get("lambda_dist", 0.0)))
+        trainer = TS.SurfelTrainer(pcd, dataset, scfg, seed=args.seed, device=device)
+    else:
+        trainer = T.Trainer(pcd, dataset, cfg, seed=args.seed, device=device)
     if args.resume:
         trainer.restore(args.resume)
         print(f"Resumed training state from {args.resume} (step {trainer.state.step}, "

@@ -1,10 +1,11 @@
-"""The CUDA kernels of gaustudio_torch (K1-K3 forward, K4 backward) against
-their plain PyTorch versions, on the card. Skipped where torch sees no CUDA device.
+"""The CUDA kernels of gaustudio_torch (K1-K3 forward, K4 backward; K1
+without the cull, K5 surfel forward, K6 surfel backward) against their plain
+PyTorch versions, on the card. Skipped where torch sees no CUDA device.
 
 This file imports no jax. tests/conftest.py does, though, and the machine
 with the card has no jax, so pytest cannot collect this file there:
 ``python3 chip_smoke.py`` runs the same comparisons on the card, at the
-mini_scene and 1080p/300k shapes. The tests stay here for a machine that has
+mini_scene, 1080p/300k and 1080p/200k-surfel shapes. The tests stay here for a machine that has
 both a card and jax.
 """
 
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from gaustudio_torch.ops import binning, composite, gaussian
+from gaustudio_torch.ops import binning, composite, composite_surfel, gaussian, rasterize_surfel
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +96,81 @@ def test_render_tiles_backward_matches_plain(pre):
             *cts, gx, gy, w, h)
     got = composite.render_tiles_backward(*args)
     want = composite.render_tiles_backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(got._fields, got, want):
+        scale = float(r.abs().max()) + 1e-6
+        torch.testing.assert_close(g / scale, r / scale, rtol=2e-3, atol=2e-5, msg=name)
+
+
+@pytest.fixture(scope="module")
+def surfels():
+    """A 2000-surfel view at 200x120 and its binning (K1 without the cull)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these comparisons on the card")
+    rng = np.random.default_rng(1)
+    n, w, h = 2000, 200, 120
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    means = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.7, 0.7, n),
+                      rng.uniform(1.0, 6.0, n)], 1)
+    quats = rng.normal(size=(n, 4))
+    tan = 0.7
+    P = np.zeros((4, 4), np.float32)
+    P[0, 0] = P[1, 1] = 1 / tan
+    P[2, 2] = 100 / (100 - 0.01)
+    P[2, 3] = -(100 * 0.01) / (100 - 0.01)
+    P[3, 2] = 1.0
+    pre = rasterize_surfel.preprocess_surfel(
+        t(means), t(rng.uniform(0.1, 0.95, n)), t(np.eye(4)), t(P.T), torch.zeros(3, device=dev),
+        w, h, scales=t(np.exp(rng.normal(size=(n, 2)) * 0.3) * 0.04),
+        rotations=t(quats / np.linalg.norm(quats, axis=-1, keepdims=True)),
+        colors_precomp=t(rng.uniform(0, 1, (n, 3))))
+    bin_in = gaussian.Preprocessed(
+        valid=pre.valid, depths=pre.depths, means2d=pre.mean2d,
+        conic=torch.zeros((n, 3), device=dev), opacities=pre.opacities, colors=pre.colors,
+        radii=pre.radii, rect_min=pre.rect_min, rect_max=pre.rect_max,
+        tiles_touched=pre.tiles_touched)
+    gx, gy = (w + 15) // 16, (h + 15) // 16
+    args = (pre.M, pre.Dk, pre.mean2d, pre.opacities, pre.colors, pre.normal_view)
+    return bin_in, binning.bin_gaussians(bin_in, gx, gy, plain=True, cull=False), args, (
+        gx, gy, w, h)
+
+
+def test_duplicate_with_keys_without_cull_matches_plain(surfels):
+    bin_in, _, _, (gx, _, _, _) = surfels
+    keys, gids = binning.duplicate_with_keys(bin_in, gx, cull=False)
+    want_keys, want_gids = binning.duplicate_with_keys_plain(bin_in, gx, cull=False)
+    torch.cuda.synchronize()
+    assert keys.shape[0] == int(bin_in.tiles_touched.sum()) > 0
+    assert torch.equal(keys, want_keys) and torch.equal(gids, want_gids)
+
+
+def test_render_surfel_tiles_matches_plain(surfels):
+    """K5 is held to K3's tolerance: floats within abs 1e-5 + rel 1e-5, the
+    median id and n_contrib exactly."""
+    _, b, args, grid = surfels
+    got = composite_surfel.render_surfel_tiles(b.ranges, b.point_list, *args, *grid)
+    want = composite_surfel.render_surfel_tiles_plain(b.ranges, b.point_list, *args, *grid)
+    torch.cuda.synchronize()
+    for name, g, r in zip(got._fields, got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, r), name
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_render_surfel_tiles_backward_matches_plain(surfels):
+    """K6 sums with atomicAdd, as K4 does: each gradient, scaled by the plain
+    version's max |value|, within K4's tolerance."""
+    _, b, args, grid = surfels
+    _, _, w, h = grid
+    fwd = composite_surfel.render_surfel_tiles_plain(b.ranges, b.point_list, *args, *grid)
+    gen = torch.Generator(device=args[0].device).manual_seed(0)
+    cts = [torch.randn(shape, generator=gen, device=args[0].device)
+           for shape in ((3, h, w), (h, w), (h, w), (3, h, w), (h, w), (h, w))]
+    full = (b.ranges, b.point_list, *args, fwd.final_T, fwd.n_contrib, *cts, *grid)
+    got = composite_surfel.render_surfel_tiles_backward(*full)
+    want = composite_surfel.render_surfel_tiles_backward_plain(*full)
     torch.cuda.synchronize()
     for name, g, r in zip(got._fields, got, want):
         scale = float(r.abs().max()) + 1e-6

@@ -265,7 +265,7 @@ def test_gs_train_cli_writes_the_inria_layout(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--dataset", "colmap"], "COLMAP"),
-    (["--dataset", "nerf", "--config", "2dgs"], "slice 4"),
+    (["--dataset", "nerf", "--config", "2dgs", "--gs_shards", "2"], "slice 8"),
     (["--dataset", "nerf", "--gs_shards", "2"], "slice 8"),
 ], ids=["colmap", "2dgs", "gs_shards"])
 def test_gs_train_cli_refuses_deferred_inputs(tmp_path, argv, match):
@@ -275,10 +275,12 @@ def test_gs_train_cli_refuses_deferred_inputs(tmp_path, argv, match):
 
 
 def test_gs_train_cli_refuses_a_surfel_config(tmp_path):
+    """2DGS trains (tests/test_torch_train_surfel.py); a surfel config whose
+    model variant the port lacks is still refused."""
     conf = tmp_path / "surfel.json"
-    conf.write_text(json.dumps({"model": {"pointcloud": {"name": "vanilla_pcd"}},
+    conf.write_text(json.dumps({"model": {"pointcloud": {"name": "scaffold_pcd"}},
                                 "renderer": {"name": "surfel_renderer"}}))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         t_train_cli.main(["-s", str(tmp_path), "-o", str(tmp_path / "out"), "--device", "cpu",
                           "--dataset", "nerf", "--config", str(conf)])
 
