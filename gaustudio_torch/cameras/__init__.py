@@ -5,7 +5,9 @@ Matrix conventions are the reference's: ``world_view_transform`` and
 getWorld2View2 / getProjectionMatrix, with an OpenGL-style z in [0, 1]
 projection and principal-point shift support. The matrices are computed in
 float64 numpy, exactly as the JAX package does, and stored as float32 torch
-tensors on ``device``.
+tensors on ``device``: the current CUDA device unless the caller names one.
+Cameras are small; a caller may keep them on the CPU (``device="cpu"``), and
+the renderer and the trainer move what they read to their own device.
 
 Camera paths, depth2point and depth2normal belong to later slices.
 """
@@ -19,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from gaustudio_torch.utils.misc import resolve_device
 
 
 def getWorld2View2(R, t, translate=np.array([0.0, 0.0, 0.0]), scale=1.0):
@@ -95,14 +99,14 @@ class Camera:
     image_name: Optional[str] = None
     image: Optional[torch.Tensor] = None  # [H, W, 3] float32 in [0, 1]
     mask: Optional[torch.Tensor] = None  # [H, W] alpha of an RGBA image
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None  # None: the current CUDA device
     world_view_transform: torch.Tensor = None
     projection_matrix: torch.Tensor = None
     full_proj_transform: torch.Tensor = None
     camera_center: torch.Tensor = None
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
         if self.R is not None and self.world_view_transform is None:
             self._setup()
 

@@ -20,9 +20,16 @@
 // conic and opacity are not read.
 //
 // K2 replaces gaustudio_tpu/ops/binning_fast.py _ranges_kernel, a sequential
-// boundary walk over the sorted keys. Here one thread per sorted entry
-// compares its tile with its neighbour's and writes the run's start or end:
-// one coalesced read of the keys, bound by memory bandwidth.
+// boundary walk over the sorted keys. Here one thread per boundary between
+// sorted entries (L + 1 of them, with tile -1 before the first entry and
+// tile T after the last) compares the tiles on its two sides; where they
+// differ it ends the run of the one, starts the run of the other, and writes
+// (0, 0) for every tile in between, which holds no entry. So every tile's
+// pair is written exactly once, the output needs no zeroing pass, and K2 is
+// one launch: one coalesced read of the keys and one write of the ranges,
+// bound by memory bandwidth. The tiles of a gap are written by one thread,
+// one after another, so an image whose entries fall in few tiles costs up
+// to T serial 8-byte stores in one thread.
 
 #include "common.cuh"
 
@@ -129,20 +136,16 @@ __global__ void write_keys_kernel(
 }
 
 __global__ void identify_tile_ranges_kernel(
-    int num_entries, const int64_t* __restrict__ keys, int* __restrict__ ranges) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= num_entries) return;
-  const int tile = (int)(keys[idx] >> 32);
-  if (idx == 0) {
-    ranges[2 * tile] = 0;
-  } else {
-    const int prev = (int)(keys[idx - 1] >> 32);
-    if (tile != prev) {
-      ranges[2 * prev + 1] = idx;
-      ranges[2 * tile] = idx;
-    }
-  }
-  if (idx == num_entries - 1) ranges[2 * tile + 1] = num_entries;
+    int num_entries, int num_tiles, const int64_t* __restrict__ keys, int* __restrict__ ranges) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;  // boundary before entry b
+  if (b > num_entries) return;
+  const int prev = b > 0 ? (int)(keys[b - 1] >> 32) : -1;
+  const int next = b < num_entries ? (int)(keys[b] >> 32) : num_tiles;
+  if (prev == next) return;
+  if (prev >= 0) ranges[2 * prev + 1] = b;
+  if (next < num_tiles) ranges[2 * next] = b;
+  int2* pairs = reinterpret_cast<int2*>(ranges);
+  for (int tile = prev + 1; tile < next; ++tile) pairs[tile] = make_int2(0, 0);
 }
 
 static inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
@@ -170,10 +173,10 @@ GS_API int gs_write_keys(int n, int grid_x, const float* means2d,
   return gs_last_error();
 }
 
-GS_API int gs_identify_tile_ranges(int num_entries, const int64_t* keys,
+GS_API int gs_identify_tile_ranges(int num_entries, int num_tiles, const int64_t* keys,
                                    int* ranges, void* stream) {
   if (num_entries > 0)
-    identify_tile_ranges_kernel<<<blocks_for(num_entries, 256), 256, 0,
-                                  (cudaStream_t)stream>>>(num_entries, keys, ranges);
+    identify_tile_ranges_kernel<<<blocks_for(num_entries + 1, 256), 256, 0,
+                                  (cudaStream_t)stream>>>(num_entries, num_tiles, keys, ranges);
   return gs_last_error();
 }

@@ -46,7 +46,8 @@ class NerfDataset(CameraDataset):
             c2w[:, 1:3] *= -1
             extr = np.linalg.inv(c2w)
             cam = Camera(R=np.transpose(extr[:3, :3]), T=extr[:3, 3], FoVx=FoVx, FoVy=FoVy,
-                         image_name=image_name, image_width=width, image_height=height)
+                         image_name=image_name, image_width=width, image_height=height,
+                         device="cpu")  # host tensors: the trainer moves each view
             if self.load_images and image_path.exists():
                 bg = np.ones(3, np.float32) if self.white_background else None
                 cam.load_image(str(image_path), bg_color=bg)

@@ -11,8 +11,9 @@ import numpy as np
 from gaustudio_torch.cameras import Camera, focal2fov, fov2focal, getWorld2View2
 
 
-def JSON_to_camera(camera_json, device="cpu") -> Camera:
-    """One entry of a 3DGS ``cameras.json`` -> Camera.
+def JSON_to_camera(camera_json, device=None) -> Camera:
+    """One entry of a 3DGS ``cameras.json`` -> Camera on ``device`` (None:
+    the current CUDA device).
 
     ``rotation`` and ``position`` are the camera-to-world rotation and the
     camera centre.

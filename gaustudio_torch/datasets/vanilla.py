@@ -23,7 +23,8 @@ class VanillaDataset(CameraDataset):
             camera_data = json.load(f)
         all_cameras = []
         for cam_dict in camera_data:
-            cam = JSON_to_camera(cam_dict)
+            # host tensors: the trainer moves each view to its own device
+            cam = JSON_to_camera(cam_dict, device="cpu")
             img = self.image_path / cam_dict["img_name"]
             if self.load_images and img.exists():
                 cam.load_image(str(img))

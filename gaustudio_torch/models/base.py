@@ -1,6 +1,7 @@
 """BasePointCloud — config-driven attribute store (port of gaustudio_tpu/models/base.py).
 
-Raw attributes live as float32 tensors ``_<name>`` on ``device``; PLY IO
+Raw attributes live as float32 tensors ``_<name>`` on ``device`` (the
+current CUDA device unless the caller names one); PLY IO
 goes through gaustudio_torch.utils.ply.
 """
 
@@ -12,14 +13,17 @@ import numpy as np
 import torch
 
 from gaustudio_torch.utils import ply as plyio
+from gaustudio_torch.utils.misc import resolve_device
 
 
 class BasePointCloud:
     default_conf: Dict = {"attributes": {}}
 
-    def __init__(self, config=None, device="cpu") -> None:
+    def __init__(self, config=None, device=None) -> None:
+        """``device``: None is the current CUDA device (see
+        utils.misc.resolve_device)."""
         self.config = {**self.default_conf, **dict(config or {})}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.setup()
 
     def __repr__(self):

@@ -50,7 +50,7 @@ class VanillaPointCloud(BasePointCloud):
         "activations": {"scale": "exp", "opacity": "sigmoid", "rot": "normalize"},
     }
 
-    def __init__(self, config=None, device="cpu") -> None:
+    def __init__(self, config=None, device=None) -> None:
         super().__init__(config, device)
         self.active_sh_degree = 0
         self.max_sh_degree = self.config["sh_degree"]
@@ -59,7 +59,7 @@ class VanillaPointCloud(BasePointCloud):
             self.load(resume_path)
 
     @classmethod
-    def from_jax_params(cls, params: Dict[str, np.ndarray], device="cpu",
+    def from_jax_params(cls, params: Dict[str, np.ndarray], device=None,
                         config=None) -> "VanillaPointCloud":
         """Build the model from the JAX model's raw attributes.
 

@@ -156,12 +156,13 @@ def identify_tile_ranges(sorted_keys: torch.Tensor, num_tiles: int) -> torch.Ten
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise ValueError(f"identify_tile_ranges: expected 1-D int64 keys, "
                          f"got {keys.dtype} {tuple(keys.shape)}")
-    ranges = torch.zeros((num_tiles, 2), dtype=torch.int32, device=keys.device)
-    if keys.shape[0]:
-        kernels.check(kernels.load().gs_identify_tile_ranges(
-            keys.shape[0], keys.data_ptr(), ranges.data_ptr(), kernels.stream()),
-            "gs_identify_tile_ranges")
-        identify_tile_ranges.launches += 1
+    if not keys.shape[0]:
+        return torch.zeros((num_tiles, 2), dtype=torch.int32, device=keys.device)
+    ranges = torch.empty((num_tiles, 2), dtype=torch.int32, device=keys.device)  # K2 writes all
+    kernels.check(kernels.load().gs_identify_tile_ranges(
+        keys.shape[0], num_tiles, keys.data_ptr(), ranges.data_ptr(), kernels.stream()),
+        "gs_identify_tile_ranges")
+    identify_tile_ranges.launches += 1
     return ranges
 
 

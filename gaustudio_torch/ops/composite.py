@@ -39,6 +39,7 @@ _ALPHA_MAX = 0.99
 _ALPHA_MIN = 1.0 / 255.0
 _TERM_EPS = 1e-4
 _MEDIAN_DEFAULT = 15.0
+NUM_GRADS = 10  # per Gaussian: d_mean 2, d_conic 3, d_opacity, d_colour 3, d_depth
 
 
 class CompositeOut(NamedTuple):
@@ -238,8 +239,7 @@ def render_tiles_backward_plain(ranges, point_list, means2d, conic, opacity, col
     S = torch.zeros_like(dC)  # suffix sums of w * colour, w * depth and w
     SD = torch.zeros_like(T)
     SO = torch.zeros_like(T)
-    # columns: d_mean (2), d_conic (3), d_opacity, d_colour (3), d_depth
-    acc = torch.zeros((n, 10), dtype=torch.float32, device=device)
+    acc = torch.zeros((n, NUM_GRADS), dtype=torch.float32, device=device)
     for r in range(len(live) - 1, -1, -1):
         k = int(live[r])
         g = point_list[starts[:k] + r].to(torch.int64)
@@ -278,6 +278,10 @@ def render_tiles_backward_plain(ranges, point_list, means2d, conic, opacity, col
         SD[:k] += w * dep
         SO[:k] += w
         T[:k] = Tb
+    return _split_grads(acc)
+
+
+def _split_grads(acc) -> CompositeGrads:
     return CompositeGrads(means2d=acc[:, 0:2], conic=acc[:, 2:5], opacity=acc[:, 5],
                           colors=acc[:, 6:9], depths=acc[:, 9])
 
@@ -306,16 +310,12 @@ def render_tiles_backward(ranges, point_list, means2d, conic, opacity, colors, d
         if t.numel() != size:
             raise ValueError(f"render_tiles_backward: {field} must hold {size} values, "
                              f"got shape {tuple(t.shape)}")
-    n = depths.numel()
-    f32 = dict(dtype=torch.float32, device=means2d.device)
-    grads = CompositeGrads(means2d=torch.zeros((n, 2), **f32), conic=torch.zeros((n, 3), **f32),
-                           opacity=torch.zeros((n,), **f32), colors=torch.zeros((n, 3), **f32),
-                           depths=torch.zeros((n,), **f32))
+    acc = torch.zeros((depths.numel(), NUM_GRADS), dtype=torch.float32, device=means2d.device)
     kernels.check(kernels.load().gs_render_tiles_backward(
-        grid_x, grid_y, W, H, *(t.data_ptr() for t in ins + per_pixel),
-        *(t.data_ptr() for t in grads), kernels.stream()), "gs_render_tiles_backward")
+        grid_x, grid_y, W, H, *(t.data_ptr() for t in ins + per_pixel), acc.data_ptr(),
+        kernels.stream()), "gs_render_tiles_backward")
     render_tiles_backward.launches += 1
-    return grads
+    return _split_grads(acc)
 
 
 render_tiles_backward.launches = 0

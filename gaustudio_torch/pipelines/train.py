@@ -36,6 +36,7 @@ from gaustudio_torch.pipelines.optimizers.general import (
     adam_update,
     exp_lr_schedule,
 )
+from gaustudio_torch.utils.misc import resolve_device
 
 PARAMS = ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot")
 
@@ -108,9 +109,11 @@ def init_state(pcd, device=None) -> TrainState:
     return _new_state(params)
 
 
-def state_from_jax(jax_state, device="cpu") -> TrainState:
-    """The port's state from a JAX ``GaussianTrainState``: its arrays are
-    read with ``np.asarray``, and only its ``valid`` rows are kept."""
+def state_from_jax(jax_state, device=None) -> TrainState:
+    """The port's state from a JAX ``GaussianTrainState`` on ``device`` (None:
+    the current CUDA device): its arrays are read with ``np.asarray``, and
+    only its ``valid`` rows are kept."""
+    device = resolve_device(device)
     valid = np.asarray(jax_state.valid)
     rows = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a)[valid])).to(device)  # noqa: E731
     opt = AdamState(mu={k: rows(v) for k, v in jax_state.opt.mu.items()},
@@ -286,14 +289,17 @@ def oneup_sh_degree(state: TrainState, max_degree: int = 3) -> TrainState:
 
 
 class Trainer:
-    """The training loop: camera sampling, schedules, logging, checkpoints."""
+    """The training loop: camera sampling, schedules, logging, checkpoints.
+
+    Trains on ``device`` (None: the current CUDA device), whatever device
+    ``pcd`` and the dataset's cameras are on."""
 
     def __init__(self, pcd, dataset, cfg: TrainConfig = TrainConfig(), seed: int = 0,
                  device=None):
         self.cfg = cfg
         self.cameras = list(dataset)
         self.extent = float(getattr(dataset, "cameras_extent", 1.0))
-        self.device = torch.device(device) if device is not None else pcd.device
+        self.device = resolve_device(device)
         self.state = init_state(pcd, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         cam0 = self.cameras[0]
@@ -388,9 +394,10 @@ def save_checkpoint(path: str, state: TrainState) -> None:
     }, path)
 
 
-def load_checkpoint(path: str, device="cpu") -> TrainState:
-    """Read a checkpoint written by :func:`save_checkpoint` onto ``device``."""
-    raw = torch.load(path, map_location=device, weights_only=True)
+def load_checkpoint(path: str, device=None) -> TrainState:
+    """Read a checkpoint written by :func:`save_checkpoint` onto ``device``
+    (None: the current CUDA device)."""
+    raw = torch.load(path, map_location=resolve_device(device), weights_only=True)
     return TrainState(params=raw["params"], opt=AdamState(**raw["opt"]), step=int(raw["step"]),
                       xyz_grad_accum=raw["xyz_grad_accum"], denom=raw["denom"],
                       max_radii2d=raw["max_radii2d"],

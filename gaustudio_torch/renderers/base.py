@@ -13,14 +13,17 @@ import torch
 
 from gaustudio_torch.ops import rasterize as rast
 from gaustudio_torch.ops.rasterize import RasterizeSettings
+from gaustudio_torch.utils.misc import resolve_device
 
 
 class BaseRenderer:
     default_conf: Dict = {}
 
-    def __init__(self, config=None, device="cpu"):
+    def __init__(self, config=None, device=None):
+        """``device``: where the renderer's own tensors live; None is the
+        current CUDA device (see utils.misc.resolve_device)."""
         self.config = {**self.default_conf, **(config or {})}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # subclasses provide get_gaussians_properties(camera, model) and bg_color
 

@@ -23,7 +23,7 @@ class SurfelRenderer(BaseRenderer):
         "convert_SHs_python": False,
     }
 
-    def __init__(self, config=None, device="cpu") -> None:
+    def __init__(self, config=None, device=None) -> None:
         super().__init__(config, device)
         self.scaling_modifier = self.config["scaling_modifier"]
         self.white_background = self.config["white_background"]

@@ -18,7 +18,7 @@ class VanillaRenderer(BaseRenderer):
         "compute_cov3D_python": False,
     }
 
-    def __init__(self, config=None, device="cpu") -> None:
+    def __init__(self, config=None, device=None) -> None:
         super().__init__(config, device)
         self.scaling_modifier = self.config["scaling_modifier"]
         self.white_background = self.config["white_background"]

@@ -89,7 +89,7 @@ def main(argv=None):
             f"-s {args.source_path}: only a cameras.json is read; the COLMAP dataset "
             "(datasets/colmap.py) comes to the port in a later slice")
     with open(args.source_path) as f:
-        cameras = [JSON_to_camera(cj) for cj in json.load(f)]
+        cameras = [JSON_to_camera(cj, device=device) for cj in json.load(f)]
 
     render_path = os.path.join(work_dir, "images")
     os.makedirs(render_path, exist_ok=True)

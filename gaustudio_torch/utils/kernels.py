@@ -36,9 +36,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gs_count_tiles": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "gs_write_keys": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-    "gs_identify_tile_ranges": [_I, _P, _P, _P],
+    "gs_identify_tile_ranges": [_I, _I, _P, _P, _P],
     "gs_render_tiles": [_I, _I, _I, _I] + [_P] * 15,
-    "gs_render_tiles_backward": [_I, _I, _I, _I] + [_P] * 20,
+    "gs_render_tiles_backward": [_I, _I, _I, _I] + [_P] * 16,
     "gs_render_surfel_tiles": [_I, _I, _I, _I] + [_P] * 18,
     "gs_render_surfel_tiles_backward": [_I, _I, _I, _I] + [_P] * 18,
 }

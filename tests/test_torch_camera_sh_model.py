@@ -32,7 +32,7 @@ def test_camera_matrices_match_jax(cameras_json):
 
     for cj in cameras_json:
         jc = j_json_to_camera(cj)
-        tc = t_json_to_camera(cj)
+        tc = t_json_to_camera(cj, device="cpu")
         for field in ("world_view_transform", "projection_matrix",
                       "full_proj_transform", "camera_center"):
             np.testing.assert_allclose(getattr(tc, field).numpy(),
@@ -51,7 +51,7 @@ def test_camera_downsample_scale_matches_jax(cameras_json):
     from gaustudio_tpu.datasets.utils import JSON_to_camera as j_json_to_camera
 
     jc = j_json_to_camera(cameras_json[0]).downsample_scale(2)
-    tc = t_json_to_camera(cameras_json[0]).downsample_scale(2)
+    tc = t_json_to_camera(cameras_json[0], device="cpu").downsample_scale(2)
     assert (tc.image_width, tc.image_height) == (jc.image_width, jc.image_height)
     np.testing.assert_allclose(tc.full_proj_transform.numpy(),
                                np.asarray(jc.full_proj_transform), atol=1e-6)
@@ -139,7 +139,7 @@ def _assert_same_model(tm, jm):
 
 def test_model_load_and_from_jax_params_match_jax():
     jm = _jax_pcd()
-    tm = t_models.make({"name": "vanilla_pcd"})
+    tm = t_models.make({"name": "vanilla_pcd"}, device="cpu")
     tm.load(os.path.join(FIXTURE, "gaussians.ply"))
     _assert_same_model(tm, jm)
 
@@ -153,7 +153,7 @@ def test_model_load_and_from_jax_params_match_jax():
 def test_model_export_roundtrips_through_jax_loader(tmp_path):
     from gaustudio_tpu import models as j_models
 
-    tm = t_models.make({"name": "vanilla_pcd"})
+    tm = t_models.make({"name": "vanilla_pcd"}, device="cpu")
     tm.load(os.path.join(FIXTURE, "gaussians.ply"))
     out = str(tmp_path / "pc.ply")
     tm.export(out)

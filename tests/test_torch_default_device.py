@@ -1,0 +1,103 @@
+"""The device rule of the port's entry points: they run on the current CUDA
+device unless the caller names one. Where torch sees no CUDA device, an
+entry point called without ``device`` raises and says to pass
+``device="cpu"``; it never falls back to the CPU. With ``device="cpu"`` its
+tensors lie on the CPU.
+
+The raising half hides the card with a monkeypatched
+``torch.cuda.is_available``, so both halves run on any machine.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from gaustudio_torch import models, renderers
+from gaustudio_torch.cameras import Camera
+from gaustudio_torch.datasets.utils import JSON_to_camera
+from gaustudio_torch.models.base import BasePointCloud
+from gaustudio_torch.models.vanilla import VanillaPointCloud
+from gaustudio_torch.pipelines import train as t_train
+from gaustudio_torch.pipelines import train_surfel as t_train_surfel
+
+CAM_JSON = {"id": 0, "img_name": "v0", "width": 8, "height": 6, "position": [0.0, 0.0, -3.0],
+            "rotation": np.eye(3).tolist(), "fx": 10.0, "fy": 10.0}
+
+
+def _params(n=5, scale_dim=3):
+    rng = np.random.default_rng(0)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    return {"xyz": f(n, 3), "opacity": f(n, 1), "f_dc": f(n, 3), "f_rest": f(n, 45),
+            "scale": f(n, scale_dim), "rot": f(n, 4)}
+
+
+def _cpu_views():
+    cam = JSON_to_camera(CAM_JSON, device="cpu")
+    cam.image = torch.zeros((6, 8, 3))
+    return [cam]
+
+
+def _jax_like_state(n=5):
+    """A stand-in with the fields state_from_jax reads from a JAX
+    GaussianTrainState, as numpy arrays."""
+    params = _params(n)
+    zeros = {k: np.zeros_like(v) for k, v in params.items()}
+    return SimpleNamespace(
+        valid=np.ones(n, bool), params=params,
+        opt=SimpleNamespace(mu=zeros, nu=zeros, count={k: np.zeros(n, np.int32) for k in params}),
+        step=np.int32(3), xyz_grad_accum=np.zeros(n, np.float32), denom=np.zeros(n, np.float32),
+        max_radii2d=np.zeros(n, np.float32), active_sh_degree=np.int32(1))
+
+
+def _checkpoint(tmp_path):
+    pcd = VanillaPointCloud.from_jax_params(_params(), device="cpu")
+    path = str(tmp_path / "step_1.pt")
+    t_train.save_checkpoint(path, t_train.init_state(pcd))
+    return path
+
+
+def _state_tensors(state):
+    return list(state.params.values()) + [state.xyz_grad_accum, state.opt.mu["xyz"]]
+
+
+# entry point -> fn(tmp_path, **device kwargs) -> the tensors it made
+ENTRY_POINTS = {
+    "renderers.make vanilla_renderer": lambda tmp, **kw: [
+        renderers.make({"name": "vanilla_renderer"}, **kw).bg_color],
+    "renderers.make surfel_renderer": lambda tmp, **kw: [
+        renderers.make({"name": "surfel_renderer"}, **kw).bg_color],
+    "models.make vanilla_pcd": lambda tmp, **kw: [
+        models.make({"name": "vanilla_pcd"}, **kw)._xyz],
+    "BasePointCloud": lambda tmp, **kw: [
+        BasePointCloud({"attributes": {"xyz": 3}}, **kw)._xyz],
+    "VanillaPointCloud.from_jax_params": lambda tmp, **kw: [
+        VanillaPointCloud.from_jax_params(_params(), **kw)._f_rest],
+    "Trainer": lambda tmp, **kw: _state_tensors(t_train.Trainer(
+        VanillaPointCloud.from_jax_params(_params(), device="cpu"), _cpu_views(), **kw).state),
+    "SurfelTrainer": lambda tmp, **kw: _state_tensors(t_train_surfel.SurfelTrainer(
+        VanillaPointCloud.from_jax_params(_params(scale_dim=2), device="cpu"), _cpu_views(),
+        **kw).state),
+    "JSON_to_camera": lambda tmp, **kw: [JSON_to_camera(CAM_JSON, **kw).full_proj_transform],
+    "Camera": lambda tmp, **kw: [Camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), FoVx=1.0,
+                                        FoVy=1.0, image_width=8, image_height=6,
+                                        **kw).world_view_transform],
+    "state_from_jax": lambda tmp, **kw: _state_tensors(
+        t_train.state_from_jax(_jax_like_state(), **kw)),
+    "load_checkpoint": lambda tmp, **kw: _state_tensors(
+        t_train.load_checkpoint(_checkpoint(tmp), **kw)),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_without_a_device_raises_where_there_is_no_card(name, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](tmp_path)
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_with_the_cpu_named_puts_its_tensors_there(name, tmp_path):
+    tensors = ENTRY_POINTS[name](tmp_path, device="cpu")
+    assert tensors and all(t.device.type == "cpu" for t in tensors), name

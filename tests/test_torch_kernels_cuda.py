@@ -2,20 +2,32 @@
 without the cull, K5 surfel forward, K6 surfel backward) against their plain
 PyTorch versions, on the card. Skipped where torch sees no CUDA device.
 
-This file imports no jax. tests/conftest.py does, though, and the machine
-with the card has no jax, so pytest cannot collect this file there:
-``python3 chip_smoke.py`` runs the same comparisons on the card, at the
-mini_scene, 1080p/300k and 1080p/200k-surfel shapes. The tests stay here for a machine that has
-both a card and jax.
+The hard cases of K2, K4 and K6 (chip_smoke.py hard_case and k2_cases: a
+Gaussian or surfel in every tile, warps that end far apart, more than 256
+entries a pixel; empty and single-entry tiles) run here too.
+
+This file imports no jax. tests/conftest.py does, and the machine with the
+card has no jax, so there pytest runs it without the conftest
+(``python3 -m pytest --noconftest tests/test_torch_kernels_cuda.py``);
+``python3 chip_smoke.py`` runs the same comparisons, at the mini_scene,
+1080p/300k and 1080p/200k-surfel shapes and on the hard cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gaustudio_torch.ops import binning, composite, composite_surfel, gaussian, rasterize_surfel
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these comparisons on the card")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 @pytest.fixture(scope="module")
@@ -175,3 +187,30 @@ def test_render_surfel_tiles_backward_matches_plain(surfels):
     for name, g, r in zip(got._fields, got, want):
         scale = float(r.abs().max()) + 1e-6
         torch.testing.assert_close(g / scale, r / scale, rtol=2e-3, atol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("case", chip_smoke.HARD_CASES)
+def test_render_tiles_backward_hard_case_matches_plain(case, cuda):
+    """K4 on a hard case within the tolerance of
+    test_render_tiles_backward_matches_plain (compare_backward raises)."""
+    pre, w, h = chip_smoke.hard_case(case, cuda)
+    _, args = chip_smoke.compare_backward(pre, w, h, seed=4)
+    chip_smoke.check_hard_case(case, args[0], args[1], args[9], w, h)
+
+
+@pytest.mark.parametrize("case", chip_smoke.HARD_CASES)
+def test_render_surfel_tiles_backward_hard_case_matches_plain(case, cuda):
+    """K6 (and K1 without the cull and K5) on a hard case within their
+    tolerances (compare_surfel_kernels raises)."""
+    pre, w, h = chip_smoke.hard_case(case, cuda, surfel=True)
+    _, _, args = chip_smoke.compare_surfel_kernels(pre, w, h, seed=5)
+    chip_smoke.check_hard_case(case, args[0], args[1], args[9], w, h)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.k2_cases(torch.device("cpu"))))
+def test_identify_tile_ranges_case_matches_plain(case, cuda):
+    keys, num_tiles = chip_smoke.k2_cases(cuda)[case]
+    got = binning.identify_tile_ranges(keys, num_tiles)
+    want = binning.identify_tile_ranges_plain(keys, num_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -28,11 +28,11 @@ def test_renderer_reproduces_golden_psnr():
     with open(os.path.join(FIXTURE, "GOLDEN.json")) as f:
         golden = json.load(f)
     with open(os.path.join(FIXTURE, "cameras.json")) as f:
-        cameras = [JSON_to_camera(cj) for cj in json.load(f)]
-    pcd = models.make({"name": "vanilla_pcd"})
+        cameras = [JSON_to_camera(cj, device="cpu") for cj in json.load(f)]
+    pcd = models.make({"name": "vanilla_pcd"}, device="cpu")
     pcd.load(os.path.join(FIXTURE, "gaussians.ply"))
     pcd.active_sh_degree = 0  # the fixture was fitted at SH degree 0
-    renderer = renderers.make({"name": "vanilla_renderer"})
+    renderer = renderers.make({"name": "vanilla_renderer"}, device="cpu")
     got = []
     for cam in cameras:
         out = renderer.render(cam, pcd)
@@ -51,12 +51,12 @@ def test_renderer_python_side_options_match_default(option):
     """SH colours or 3D covariances computed in the renderer (the reference's
     two config switches) give the image of the default path."""
     with open(os.path.join(FIXTURE, "cameras.json")) as f:
-        cam = JSON_to_camera(json.load(f)[3])
-    pcd = models.make({"name": "vanilla_pcd"})
+        cam = JSON_to_camera(json.load(f)[3], device="cpu")
+    pcd = models.make({"name": "vanilla_pcd"}, device="cpu")
     pcd.load(os.path.join(FIXTURE, "gaussians.ply"))
     pcd.active_sh_degree = 0
-    want = renderers.make({"name": "vanilla_renderer"}).render(cam, pcd)
-    got = renderers.make({"name": "vanilla_renderer", option: True}).render(cam, pcd)
+    want = renderers.make({"name": "vanilla_renderer"}, device="cpu").render(cam, pcd)
+    got = renderers.make({"name": "vanilla_renderer", option: True}, device="cpu").render(cam, pcd)
     for key in ("render", "rendered_depth", "rendered_final_opacity"):
         np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), atol=1e-4, err_msg=key)
 

@@ -135,7 +135,7 @@ def test_surfel_renderer_matches_jax():
     attrs = dict(xyz=xyz, rgb=rng.uniform(size=(n, 3)).astype(np.float32),
                  scale=np.log(rng.uniform(0.05, 0.2, (n, 2))).astype(np.float32), rot=quats)
     conf = {"name": "vanilla_pcd", "attributes": SURFEL_ATTRS}
-    jp, tp = j_models.make(conf), t_models.make(conf)
+    jp, tp = j_models.make(conf), t_models.make(conf, device="cpu")
     jp.create_from_attribute(**attrs)
     tp.create_from_attribute(**attrs)
     f_rest = (rng.normal(size=(n, 45)) * 0.1).astype(np.float32)
@@ -147,7 +147,8 @@ def test_surfel_renderer_matches_jax():
     from gaustudio_tpu.cameras import Camera as JCamera
 
     ref = j_renderers.make({"name": "surfel_renderer"}).render(JCamera(**cam), jp)
-    got = t_renderers.make({"name": "surfel_renderer"}).render(TCamera(**cam), tp)
+    got = t_renderers.make({"name": "surfel_renderer"}, device="cpu").render(
+        TCamera(**cam, device="cpu"), tp)
     for k in ("render", "rendered_normal", "rendered_depth", "rendered_final_opacity",
               "rendered_median_depth", "rendered_dist_m2"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-4, atol=1e-5,

@@ -166,7 +166,7 @@ def test_two_column_scale_model_matches_jax(tmp_path):
     rng = np.random.default_rng(0)
     xyz = rng.normal(size=(40, 3)).astype(np.float32)
     rgb = rng.uniform(size=(40, 3)).astype(np.float32)
-    t_pcd = t_models.make({"name": "vanilla_pcd", "attributes": SURFEL_ATTRS})
+    t_pcd = t_models.make({"name": "vanilla_pcd", "attributes": SURFEL_ATTRS}, device="cpu")
     j_pcd = j_models.make({"name": "vanilla_pcd", "attributes": SURFEL_ATTRS})
     t_pcd.create_from_attribute(xyz=xyz, rgb=rgb)
     j_pcd.create_from_attribute(xyz=xyz, rgb=rgb)

@@ -70,7 +70,7 @@ def carried():
                 np.moveaxis(np.asarray(cam.image, np.float32), -1, 0))
         jb.append(j_train.CameraBatch(*(jnp.asarray(a) for a in arrs)))
         tb.append(t_train.CameraBatch(*(torch.tensor(np.asarray(a)) for a in arrs)))
-    return dict(jstate=jstate, tstate=t_train.state_from_jax(jstate), jset=jset, tset=tset,
+    return dict(jstate=jstate, tstate=t_train.state_from_jax(jstate, device="cpu"), jset=jset, tset=tset,
                 jb=jb, tb=tb, cfg=j_train.TrainConfig(), tcfg=t_train.TrainConfig())
 
 
@@ -144,7 +144,7 @@ def _rows(params, idx=None, skip=()):
 def test_densify_and_prune_matches_jax(prune_big):
     cfg = j_train.TrainConfig(densify_grad_threshold=0.1, percent_dense=0.01)
     jstate = _densify_state()
-    tstate = t_train.state_from_jax(jstate)
+    tstate = t_train.state_from_jax(jstate, device="cpu")
     jnew, jinfo = j_train.densify_and_prune(jstate, jax.random.PRNGKey(0), jnp.asarray(1.0), cfg,
                                             jnp.asarray(prune_big))
     tnew, tinfo = t_train.densify_and_prune(tstate, torch.Generator().manual_seed(0), 1.0,
@@ -184,7 +184,7 @@ def test_densify_and_prune_matches_jax(prune_big):
 
 def test_reset_opacity_and_oneup_sh_degree_match_jax():
     jstate = _densify_state()
-    tstate = t_train.state_from_jax(jstate)
+    tstate = t_train.state_from_jax(jstate, device="cpu")
     jr, tr = j_train.reset_opacity(jstate), t_train.reset_opacity(tstate)
     valid = np.asarray(jr.valid)
     np.testing.assert_array_equal(tr.params["opacity"].numpy(),
@@ -287,7 +287,7 @@ def test_gs_train_cli_refuses_a_surfel_config(tmp_path):
 
 def test_trainer_densifies_and_checkpoints_roundtrip(tmp_path):
     gt_pcd, cams = _make_gt_scene(n=60, size=32)
-    pcd = t_models.make({"name": "vanilla_pcd"})
+    pcd = t_models.make({"name": "vanilla_pcd"}, device="cpu")
     pcd.create_from_attribute(xyz=np.asarray(gt_pcd._xyz), rgb=np.full((60, 3), 0.5, np.float32))
     for cam in cams:
         cam.image = torch.tensor(np.asarray(cam.image, np.float32))
@@ -301,13 +301,13 @@ def test_trainer_densifies_and_checkpoints_roundtrip(tmp_path):
     cfg = t_train.TrainConfig(densify_from_iter=2, densify_until_iter=100,
                               densification_interval=5, densify_grad_threshold=1e-7,
                               sh_increase_interval=4)
-    trainer = t_train.Trainer(pcd, _Cams(cams), cfg, seed=0)
+    trainer = t_train.Trainer(pcd, _Cams(cams), cfg, seed=0, device="cpu")
     history = trainer.train(iterations=10, log_every=5, metrics_path=str(tmp_path / "m.jsonl"),
                             checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=10)
     assert [m["iter"] for m in history] == [5, 10]
     assert history[0]["n_clone"] + history[0]["n_split"] > 0
     assert trainer.state.num_points > 60 and trainer.state.active_sh_degree == 2
-    back = t_train.load_checkpoint(str(tmp_path / "ckpt" / "step_10.pt"))
+    back = t_train.load_checkpoint(str(tmp_path / "ckpt" / "step_10.pt"), device="cpu")
     assert back.step == 10 and back.active_sh_degree == 2
     for k in t_train.PARAMS:
         torch.testing.assert_close(back.params[k], trainer.state.params[k], rtol=0, atol=0)
@@ -315,7 +315,7 @@ def test_trainer_densifies_and_checkpoints_roundtrip(tmp_path):
     lines = [json.loads(x) for x in open(tmp_path / "m.jsonl")]
     assert [x["step"] for x in lines] == [5, 10]
 
-    out = t_train.state_to_model(trainer.state, t_models.make({"name": "vanilla_pcd"}))
+    out = t_train.state_to_model(trainer.state, t_models.make({"name": "vanilla_pcd"}, device="cpu"))
     assert out.num_points == trainer.state.num_points and out.active_sh_degree == 2
 
 
@@ -370,7 +370,7 @@ def test_create_from_attribute_matches_jax():
     rng = np.random.default_rng(0)
     xyz = rng.normal(size=(50, 3)).astype(np.float32)
     rgb = rng.uniform(size=(50, 3)).astype(np.float32)
-    t_pcd = t_models.make({"name": "vanilla_pcd"})
+    t_pcd = t_models.make({"name": "vanilla_pcd"}, device="cpu")
     j_pcd = j_models.make({"name": "vanilla_pcd"})
     t_pcd.create_from_attribute(xyz=xyz, rgb=rgb)
     j_pcd.create_from_attribute(xyz=xyz, rgb=rgb)
@@ -388,7 +388,7 @@ def test_base_model_update_and_create_from_attribute_match_jax():
     rng = np.random.default_rng(2)
     attrs = {"xyz": rng.normal(size=(6, 3)).astype(np.float32),
              "rgb": rng.uniform(size=(6, 3)).astype(np.float32), "normal": None}
-    t_pcd, j_pcd = TBase(), JBase()
+    t_pcd, j_pcd = TBase(device="cpu"), JBase()
     t_pcd.create_from_attribute(**attrs)
     j_pcd.create_from_attribute(**attrs)
     assert list(t_pcd.config["attributes"]) == ["xyz", "rgb"] and t_pcd.num_points == 6

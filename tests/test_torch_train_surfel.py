@@ -79,7 +79,7 @@ def carried():
                 np.moveaxis(np.asarray(cam.image, np.float32), -1, 0))
         jb.append(j_train.CameraBatch(*(jnp.asarray(a) for a in arrs)))
         tb.append(t_train.CameraBatch(*(torch.tensor(np.asarray(a)) for a in arrs)))
-    return dict(jstate=jstate, tstate=t_train.state_from_jax(jstate), jset=jset, tset=tset,
+    return dict(jstate=jstate, tstate=t_train.state_from_jax(jstate, device="cpu"), jset=jset, tset=tset,
                 jb=jb, tb=tb, cfg=j_ts.SurfelTrainConfig(**CFG),
                 tcfg=t_ts.SurfelTrainConfig(**CFG))
 
@@ -139,7 +139,7 @@ def test_densify_and_prune_on_surfels_matches_jax(prune_big):
     cfg = j_train.TrainConfig(densify_grad_threshold=0.1, percent_dense=0.01)
     jnew, jinfo = j_train.densify_and_prune(jstate, jax.random.PRNGKey(0), jnp.asarray(1.0),
                                             cfg, jnp.asarray(prune_big))
-    tstate = t_train.state_from_jax(jstate)
+    tstate = t_train.state_from_jax(jstate, device="cpu")
     tnew, tinfo = t_train.densify_and_prune(tstate, torch.Generator().manual_seed(0), 1.0,
                                             t_train.TrainConfig(**cfg._asdict()), prune_big)
     for k in ("n_clone", "n_split", "n_prune_opacity", "n_prune_big"):
