@@ -2,13 +2,14 @@
 """Smoke test of the PyTorch / CUDA port (gaustudio_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --ab PARENT    # K4 and K6 of two checkouts, in turns
+    python3 chip_smoke.py --ab PARENT    # K3-K6 of two checkouts, in turns
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
-1. the card: its name and power limit (nvidia-smi); TF32 off;
+1. the card: its name and power limit (nvidia-smi); TF32 off; whether PIL
+   imports (else images decode through the port's stdlib PNG reader);
 2. build: the CUDA kernels of gaustudio_torch/csrc, compiled with nvcc at
-   first use (build seconds and ptxas register counts);
+   first use, one nvcc per source (build seconds and ptxas register counts);
 3. kernels: each kernel (K1 duplicate_with_keys, K2 identify_tile_ranges,
    K3 render_tiles, K4 render_tiles_backward; K1 without the cull, K5
    render_surfel_tiles and K6 render_surfel_tiles_backward) against its plain
@@ -19,15 +20,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    version's (and, for K2, torch.searchsorted's) at the 1080p shapes (K1, K2
    and torch.searchsorted on the device by torch.profiler, with the host
    time of a call beside it; the others by CUDA events), and the time of the
-   torch-op stages (activations + preprocess, the sort); then K4 and K6 on
+   torch-op stages (activations + preprocess, the sort); then K1-K6 on
    the hard cases (hard_case: one Gaussian or surfel in every tile, warps
-   that end far apart, more than 256 entries a pixel) and K2 on empty and
+   that end far apart, more than 256 entries a pixel, a ragged image whose
+   bottom tiles hold an odd number of rows) and K2 on empty and
    single-entry tiles;
 4. render path on the fixture: gs-render on tests/fixtures/mini_scene, and
    the renderer's PSNR against GOLDEN.json (within 0.15 dB);
 5. render path at full width: gs-render of the 300k model from three
    1920x1080 cameras, with the launch counts of that run, the lit-fraction
-   guard, and rasterize() timed warm against the plain path;
+   guard, rasterize() timed warm against the plain path, and the device's
+   busy share of a warm render;
 6. training path on the fixture: gs-train for 1000 iterations from the
    fixture's sparse points (densification at 600-1000), with the launch
    counts of that run, and the PSNR of the exported model against that of
@@ -39,8 +42,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    SH 3 and at 512x512 / 100k, with ms per iteration and a breakdown;
 8. 2DGS render path at full width: gs-render --config 2dgs of the 200k-surfel
    model from three 1920x1080 cameras, with the launch counts, the lit
-   fraction (alpha > 0.01) and rasterize_surfels() timed warm against the
-   plain path;
+   fraction (alpha > 0.01), rasterize_surfels() timed warm against the
+   plain path, and the device's busy share of a warm render;
 9. 2DGS training path on the fixture: gs-train --config 2dgs from the
    fixture's sparse points as in phase 6, with the launch counts, a
    2-column scale export and the exported model's PSNR against that of the
@@ -59,10 +62,11 @@ render and training paths (phases 5, 6, 8 and 9). The last two lines are
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
 and nothing of the JAX package or its benchmark scripts.
 
-``--ab PARENT`` runs none of the phases: it times K4 at 1080p/300k and K6
-at 1080p/200k surfels through the gaustudio_torch of the checkout at PARENT
-and of this one, in turns (parent, this, this, parent), each in a process of
-its own (``--time-backward --tree DIR``), and prints the ratios.
+``--ab PARENT`` runs none of the phases: it times K3 and K4 at 1080p/300k
+and K5 and K6 at 1080p/200k surfels through the gaustudio_torch of the
+checkout at PARENT and of this one, in turns (parent, this, this, parent),
+each in a process of its own (``--time-backward --tree DIR``, which prints
+the four kernels' times as one JSON line), and prints the four ratios.
 """
 
 from __future__ import annotations
@@ -418,10 +422,11 @@ def compare_backward(pre, W: int, H: int, seed: int):
     return abs_err, args
 
 
-def device_ms(fn, names, iters: int = 20) -> float:
+def device_ms(fn, names=None, iters: int = 20) -> float:
     """Mean device milliseconds per call of ``fn`` in the CUDA kernels whose
-    names hold one of ``names``, from torch.profiler over ``iters`` warm
-    calls; raises where the profiler recorded no device time for them."""
+    names hold one of ``names`` (every kernel and copy with None), from
+    torch.profiler over ``iters`` warm calls; raises where the profiler
+    recorded no device time for them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -433,7 +438,7 @@ def device_ms(fn, names, iters: int = 20) -> float:
         torch.cuda.synchronize()
     us = 0.0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names):
+        if ev.device_type == DeviceType.CUDA and (names is None or any(n in ev.key for n in names)):
             us += float(getattr(ev, "self_device_time_total", None)
                         or getattr(ev, "self_cuda_time_total", 0.0))
     check(us > 0, f"torch.profiler recorded no device time for the kernels {names}")
@@ -449,6 +454,15 @@ def host_us(fn, iters: int = 20) -> float:
     us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def busy_share(tag: str, fn, wall_s: float, card: str) -> None:
+    """Prints the device's busy share of one warm call of ``fn``: the device
+    time of every kernel and copy that torch.profiler records in it (mean of
+    5 calls) over ``wall_s``, the call's mean host-clock wall unprofiled."""
+    busy = device_ms(fn, iters=5)
+    say("time", f"{tag}: device busy {busy:.4f} ms of {wall_s * 1e3:.4f} ms wall per call, "
+        f"busy share {busy / (wall_s * 1e3):.4f} (torch.profiler) | {card}")
 
 
 def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
@@ -575,15 +589,16 @@ def compare_surfel_kernels(pre, W: int, H: int, seed: int):
              "render_surfel_tiles_backward": k6_err}, fwd_args, bwd_args)
 
 
-# --- phase 3: hard cases of K2, K4 and K6 ---------------------------------
+# --- phase 3: hard cases of K2-K6 -----------------------------------------
 
-HARD_CASES = ("hot", "warp_skip", "multi_batch")
+HARD_CASES = ("hot", "warp_skip", "multi_batch", "ragged")
 
 
 def hard_case(name: str, device, surfel: bool = False):
-    """(pre, W, H) of one seeded view that stresses one part of K4 (K6 with
-    ``surfel``: the same primitives as camera-facing surfels), the camera at
-    the origin looking down +z (tan(fov/2) = 0.7):
+    """(pre, W, H) of one seeded view that stresses one part of the
+    compositors (K3 and K4; K5 and K6 with ``surfel``: the same primitives as
+    camera-facing surfels), the camera at the origin looking down +z
+    (tan(fov/2) = 0.7):
 
     * hot: one broad primitive (index 0) in front of 400 small ones on a
       160x128 view; it lies in every tile, so every tile adds into its row;
@@ -591,7 +606,10 @@ def hard_case(name: str, device, surfel: bool = False):
       ones on the top two pixel rows, so the top warps walk ~150 positions
       and the bottom warps one;
     * multi_batch: 1500 faint primitives on a 32x32 view, so pixels apply more
-      than 256 entries: several staged batches and flushes per tile.
+      than 256 entries: several staged batches and flushes per tile;
+    * ragged: 600 primitives over a 150x117 view, whose right tiles hold 6
+      columns and bottom tiles 5 rows of the image: the second pixel of a
+      thread's pair lies below the image there.
     """
     from gaustudio_torch.ops import gaussian, rasterize_surfel
 
@@ -612,6 +630,10 @@ def hard_case(name: str, device, surfel: bool = False):
         n = 1500
         px, py = rng.uniform(0, W, n), rng.uniform(0, H, n)
         z, size, op = rng.uniform(2.0, 4.0, n), np.full(n, 0.7), rng.uniform(0.01, 0.03, n)
+    elif name == "ragged":
+        W, H, n = 150, 117, 600
+        px, py = rng.uniform(0, W, n), rng.uniform(0, H, n)
+        z, size, op = rng.uniform(2.0, 5.0, n), rng.uniform(0.02, 0.08, n), rng.uniform(0.3, 0.9, n)
     else:
         raise ValueError(f"unknown hard case {name!r}")
     tan = 0.7
@@ -653,8 +675,13 @@ def check_hard_case(name: str, ranges, point_list, n_contrib, W: int, H: int) ->
         check(hot_tiles == gx * gy, f"hot: entry 0 lies in {hot_tiles} of {gx * gy} tiles")
     elif name == "warp_skip":
         check(spread >= 100, f"warp_skip: the warps' largest n_contrib differ by {spread} < 100")
-    else:
+    elif name == "multi_batch":
         check(nc_max > 256, f"multi_batch: largest n_contrib {nc_max} <= 256")
+    else:
+        lit_edge = int((n_contrib[H - 1] > 0).sum()) + int((n_contrib[:, W - 1] > 0).sum())
+        check((H % 16) % 2 == 1 and W % 16 != 0 and lit_edge > 0,
+              f"ragged: {W}x{H} (bottom tiles hold {H % 16} rows), {lit_edge} lit pixels on the "
+              "last row and column")
     return (f"{W}x{H}, {gx * gy} tiles, entry 0 in {hot_tiles} tiles, largest run {most}, "
             f"largest n_contrib {nc_max}, largest spread of a tile's warp maxima {spread}")
 
@@ -673,24 +700,24 @@ def k2_cases(device) -> dict:
 
 
 def compare_hard_cases(device) -> dict:
-    """K4 and K6 against their plain versions on the hard cases (K6's calls
-    also hold K1 without the cull and K5 against theirs), and K2 on the cases
-    of k2_cases; returns {kernel: max abs error}."""
+    """K1-K4 against their plain versions on the hard cases, K1 without the
+    cull, K5 and K6 on their surfel forms, and K2 on the cases of k2_cases;
+    returns {kernel: max abs error}."""
     from gaustudio_torch.ops import binning
 
-    errs = {"render_tiles_backward": 0.0, "render_surfel_tiles_backward": 0.0}
+    errs = {}
     for name in HARD_CASES:
         pre, W, H = hard_case(name, device)
-        err, args = compare_backward(pre, W, H, seed=4)
-        errs["render_tiles_backward"] = max(errs["render_tiles_backward"], err)
-        say("kernels", f"hard case {name}, K4: " + check_hard_case(name, args[0], args[1],
-                                                                    args[9], W, H))
+        k_errs = compare_kernels(pre, W, H)
+        k_errs["render_tiles_backward"], args = compare_backward(pre, W, H, seed=4)
+        say("kernels", f"hard case {name}, K3 and K4: " + check_hard_case(
+            name, args[0], args[1], args[9], W, H))
         pre, W, H = hard_case(name, device, surfel=True)
-        k_errs, _, args = compare_surfel_kernels(pre, W, H, seed=5)
-        errs["render_surfel_tiles_backward"] = max(errs["render_surfel_tiles_backward"],
-                                                   k_errs["render_surfel_tiles_backward"])
-        say("kernels", f"hard case {name}, K6: " + check_hard_case(name, args[0], args[1],
-                                                                    args[9], W, H))
+        surfel_errs, _, args = compare_surfel_kernels(pre, W, H, seed=5)
+        say("kernels", f"hard case {name}, K5 and K6: " + check_hard_case(
+            name, args[0], args[1], args[9], W, H))
+        for k, err in {**k_errs, **surfel_errs}.items():
+            errs[k] = max(errs.get(k, 0), err)
     for name, (keys, num_tiles) in k2_cases(device).items():
         got = binning.identify_tile_ranges(keys, num_tiles)
         want = binning.identify_tile_ranges_plain(keys, num_tiles)
@@ -908,11 +935,13 @@ def main_path_full(out_dir: str, ply: str, cams_path: str, device, card: str) ->
                 run(settings)
             torch.cuda.synchronize()
             timings[name] = (time.perf_counter() - t0) / iters
-    mpix = FULL_W * FULL_H / 1e6
-    say("time", f"rasterize {FULL_W}x{FULL_H} {FULL_N} pts SH3: kernels "
-        f"{timings['kernels'] * 1e3:.3f} ms = {mpix / timings['kernels']:.2f} MPix/s; plain "
-        f"{timings['plain'] * 1e3:.3f} ms = {mpix / timings['plain']:.3f} MPix/s; "
-        f"max|err| {err:.2e} | {card}")
+        mpix = FULL_W * FULL_H / 1e6
+        say("time", f"rasterize {FULL_W}x{FULL_H} {FULL_N} pts SH3: kernels "
+            f"{timings['kernels'] * 1e3:.3f} ms = {mpix / timings['kernels']:.2f} MPix/s; plain "
+            f"{timings['plain'] * 1e3:.3f} ms = {mpix / timings['plain']:.3f} MPix/s; "
+            f"max|err| {err:.2e} | {card}")
+        busy_share(f"rasterize {FULL_W}x{FULL_H} {FULL_N} pts SH3", lambda: run(st),
+                   timings["kernels"], card)
     return counts
 
 
@@ -1230,21 +1259,26 @@ def main_path_surfel(out_dir: str, ply: str, cams_path: str, device, card: str) 
                 run(settings)
             torch.cuda.synchronize()
             timings[name] = (time.perf_counter() - t0) / iters
-    mpix = FULL_W * FULL_H / 1e6
-    say("time", f"rasterize_surfels {FULL_W}x{FULL_H} {SURFEL_N} surfels SH3: kernels "
-        f"{timings['kernels'] * 1e3:.3f} ms = {mpix / timings['kernels']:.2f} MPix/s; plain "
-        f"{timings['plain'] * 1e3:.3f} ms = {mpix / timings['plain']:.3f} MPix/s; "
-        f"max|err| {err:.2e} | {card}")
+        mpix = FULL_W * FULL_H / 1e6
+        say("time", f"rasterize_surfels {FULL_W}x{FULL_H} {SURFEL_N} surfels SH3: kernels "
+            f"{timings['kernels'] * 1e3:.3f} ms = {mpix / timings['kernels']:.2f} MPix/s; plain "
+            f"{timings['plain'] * 1e3:.3f} ms = {mpix / timings['plain']:.3f} MPix/s; "
+            f"max|err| {err:.2e} | {card}")
+        busy_share(f"rasterize_surfels {FULL_W}x{FULL_H} {SURFEL_N} surfels SH3",
+                   lambda: run(st), timings["kernels"], card)
     return counts
 
 
-# --- the backward compositors of two checkouts, in turns -------------------
+# --- the compositors of two checkouts, in turns ----------------------------
+
+COMPOSITORS = ("render_tiles", "render_tiles_backward", "render_surfel_tiles",
+               "render_surfel_tiles_backward")
 
 
-def time_backward(device, card: str, reps: int = 3) -> dict:
-    """K4 at 1080p/300k and K6 at 1080p/200k surfels (phase 3's middle view,
-    scenes and cotangents), CUDA events over 20 calls, ``reps`` times each,
-    through the gaustudio_torch that this process imported."""
+def time_compositors(device, card: str, reps: int = 3) -> dict:
+    """K3 and K4 at 1080p/300k and K5 and K6 at 1080p/200k surfels (phase 3's
+    middle view, scenes and cotangents), CUDA events over 20 calls, ``reps``
+    times each, through the gaustudio_torch that this process imported."""
     import gaustudio_torch
     from gaustudio_torch import renderers
     from gaustudio_torch.datasets.utils import JSON_to_camera
@@ -1260,23 +1294,28 @@ def time_backward(device, card: str, reps: int = 3) -> dict:
     pcd.active_sh_degree = 3
     pre = view_preprocess(renderers.make({"name": "vanilla_renderer"}, device=device), cam, pcd)
     args = backward_args(pre, FULL_W, FULL_H, seed=1)
+    fwd_args = args[:7] + args[-4:]
+    result["render_tiles"] = [
+        cuda_ms(lambda: composite.render_tiles(*fwd_args), 20) for _ in range(reps)]
     result["render_tiles_backward"] = [
         cuda_ms(lambda: composite.render_tiles_backward(*args), 20) for _ in range(reps)]
-    del pcd, pre, args
+    del pcd, pre, args, fwd_args
     pcd = VanillaPointCloud.from_jax_params(surfel_scene_params(), device=device,
                                             config=SURFEL_CONFIG)
     pcd.active_sh_degree = 3
     pre = view_preprocess_surfel(renderers.make({"name": "surfel_renderer"}, device=device),
                                  cam, pcd)
-    bwd_args = surfel_args(pre, FULL_W, FULL_H, seed=3)[3]
+    _, fwd_args, _, bwd_args = surfel_args(pre, FULL_W, FULL_H, seed=3)
+    result["render_surfel_tiles"] = [
+        cuda_ms(lambda: composite_surfel.render_surfel_tiles(*fwd_args), 20) for _ in range(reps)]
     result["render_surfel_tiles_backward"] = [
         cuda_ms(lambda: composite_surfel.render_surfel_tiles_backward(*bwd_args), 20)
         for _ in range(reps)]
     return result
 
 
-def ab_backward(parent: str, card: str) -> None:
-    """K4 and K6 of the checkout at ``parent`` and of this one, timed in turns
+def ab_compositors(parent: str, card: str) -> None:
+    """K3-K6 of the checkout at ``parent`` and of this one, timed in turns
     (parent, this, this, parent), each in a process of its own on this card."""
     runs = []
     for tree in (parent, REPO, REPO, parent):
@@ -1286,7 +1325,7 @@ def ab_backward(parent: str, card: str) -> None:
               f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         say("ab", json.dumps(runs[-1]))
-    for name in ("render_tiles_backward", "render_surfel_tiles_backward"):
+    for name in COMPOSITORS:
         before = statistics.mean(ms for r in (runs[0], runs[3]) for ms in r[name])
         after = statistics.mean(ms for r in (runs[1], runs[2]) for ms in r[name])
         say("ab", f"{name}: parent {before:.4f} ms, this checkout {after:.4f} ms, ratio "
@@ -1298,10 +1337,11 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(REPO, "gaustudio_torch", "build", "smoke"),
                         help="directory for the generated scene and the rendered images")
     parser.add_argument("--ab", metavar="PARENT",
-                        help="only time K4 and K6 of the checkout at PARENT and of this one, "
+                        help="only time K3-K6 of the checkout at PARENT and of this one, "
                              "in turns (parent, this, this, parent)")
     parser.add_argument("--time-backward", action="store_true",
-                        help="only time K4 and K6 at the 1080p shapes and print one JSON line")
+                        help="only time the compositors K3-K6 at the 1080p shapes and print "
+                             "one JSON line")
     parser.add_argument("--tree", default=REPO,
                         help="with --time-backward: the checkout whose gaustudio_torch to use")
     args = parser.parse_args(argv)
@@ -1318,16 +1358,22 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     card = card_line()
     if args.time_backward:
-        print(json.dumps(time_backward(device, card)), flush=True)
+        print(json.dumps(time_compositors(device, card)), flush=True)
         return 0
     print(card, flush=True)
     if args.ab:
-        ab_backward(os.path.abspath(args.ab), card)
+        ab_compositors(os.path.abspath(args.ab), card)
         return 0
     from gaustudio_torch.utils import kernels
 
     say("card", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    try:
+        import PIL
+
+        say("card", f"PIL {PIL.__version__} imports: images decode through it")
+    except ImportError:
+        say("card", "PIL does not import: images decode through the stdlib PNG reader")
     os.makedirs(args.out, exist_ok=True)
 
     # phase 2: build

@@ -172,18 +172,27 @@ class Camera:
         return self.downsample(resolution)
 
     def downsample(self, resolution):
-        """Resize to ``(w, h)``; images are resampled bilinearly."""
+        """Resize to ``(w, h)`` as the JAX package's ``resize_color`` does:
+        the image and the mask are quantised to uint8 (x 255 where their
+        maximum is at most 1, then truncated) and resampled with an
+        antialiased bicubic filter, PIL's default for ``resize``; the uint8
+        result is divided by 255. The resampling runs on the host."""
         w, h = resolution
+
+        def resize_color(x: torch.Tensor) -> torch.Tensor:
+            x = x.detach().cpu()
+            if float(x.max()) <= 1.0:
+                x = x * 255.0
+            q = x.to(torch.uint8).reshape(x.shape[0], x.shape[1], -1).permute(2, 0, 1)[None]
+            out = torch.nn.functional.interpolate(
+                q, size=(h, w), mode="bicubic", antialias=True, align_corners=False)
+            out = out[0].permute(1, 2, 0).float() / 255.0
+            return out.reshape((h, w) + tuple(x.shape[2:])).clamp(0.0, 1.0).to(self.device)
+
         if self.image is not None:
-            img = self.image.permute(2, 0, 1)[None]
-            img = torch.nn.functional.interpolate(
-                img, size=(h, w), mode="bilinear", antialias=True, align_corners=False)
-            self.image = img[0].permute(1, 2, 0).clamp(0.0, 1.0)
+            self.image = resize_color(self.image)[..., :3]
         if self.mask is not None:
-            m = torch.nn.functional.interpolate(
-                self.mask[None, None], size=(h, w), mode="bilinear",
-                antialias=True, align_corners=False)
-            self.mask = m[0, 0].clamp(0.0, 1.0)
+            self.mask = resize_color(self.mask)
         self.image_width, self.image_height = w, h
         self._setup()
         return self

@@ -11,7 +11,11 @@
 // and median tests of the four compositors) is therefore written
 // with __fmul_rn / __fadd_rn, which nvcc never fuses into a multiply-add, so
 // each kernel decides exactly as its plain version does. Everything else may
-// fuse.
+// fuse. Splitting such arithmetic between a pixel pair's shared column terms
+// and each pixel's own (gs_power_col / _row; gs_surfel_col, _cross and
+// _finish) keeps every operation and its operands, so it rounds the same.
+// The forward's early skip (gs_alpha_cut) only drops pairs that the exact
+// tests drop too.
 #pragma once
 
 #include <cstdint>
@@ -19,12 +23,22 @@
 
 #define GS_TILE 16
 #define GS_BLOCK (GS_TILE * GS_TILE)
-// The backward compositors (K4, K6) walk two vertically adjacent pixels a
-// thread, so that a warp's reduction of an entry's gradients serves 64
-// pixels: a block of GS_BWD_THREADS threads covers a tile.
-#define GS_BWD_PIX 2
-#define GS_BWD_THREADS (GS_BLOCK / GS_BWD_PIX)
-static_assert(GS_TILE % GS_BWD_PIX == 0, "a thread's pixels are whole rows of its column");
+// The four compositors (K3-K6) walk GS_PIX vertically adjacent pixels a
+// thread, so that an entry read from shared memory once serves both, the
+// terms that depend on the pixel's x only are computed once, and a warp's
+// reduction of an entry's gradients (K4, K6) serves 64 pixels: a block of
+// GS_PAIR_THREADS threads covers a tile.
+#define GS_PIX 2
+#define GS_PAIR_THREADS (GS_BLOCK / GS_PIX)
+static_assert(GS_TILE % GS_PIX == 0, "a thread's pixels are whole rows of its column");
+
+// Whether every one of a thread's pixels is done.
+__device__ __forceinline__ bool gs_all(const bool (&done)[GS_PIX]) {
+  bool all = true;
+#pragma unroll
+  for (int p = 0; p < GS_PIX; ++p) all = all && done[p];
+  return all;
+}
 
 #define GS_API extern "C" __attribute__((visibility("default")))
 
@@ -33,12 +47,39 @@ static inline int gs_last_error() { return static_cast<int>(cudaGetLastError());
 // -0.5 (a dx dx + c dy dy) - b dx dy of conic (a, b, c), unfused. It decides
 // skip, stop and median in the forward (K3) and which entries the backward
 // (K4) re-walks; one function keeps the two bit-identical, so the backward's
-// T, rebuilt by division, retraces the forward exactly.
+// T, rebuilt by division, retraces the forward exactly. It is split in two:
+// the terms of dx alone (a dx dx and b dx), which the pixels of one column
+// share, and the rest; the operations and their order are gs_power's.
+struct GsPowerCol {
+  float adxdx, bdx;
+};
+
+__device__ __forceinline__ GsPowerCol gs_power_col(float a, float b, float dx) {
+  return {__fmul_rn(__fmul_rn(a, dx), dx), __fmul_rn(b, dx)};
+}
+
+__device__ __forceinline__ float gs_power_row(const GsPowerCol& col, float c, float dy) {
+  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(col.adxdx, __fmul_rn(__fmul_rn(c, dy), dy))),
+                   __fmul_rn(col.bdx, dy));
+}
+
 __device__ __forceinline__ float gs_power(float a, float b, float c, float dx, float dy) {
-  return __fsub_rn(
-      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                                 __fmul_rn(__fmul_rn(c, dy), dy))),
-      __fmul_rn(__fmul_rn(b, dx), dy));
+  return gs_power_row(gs_power_col(a, b, dx), c, dy);
+}
+
+// The forward compositors' early skip (K3, K5). For an entry of opacity op,
+// a bound L with op exp(-L) < exp(-0.001) / 255: where power < -L (K3) or
+// rho / 2 > L (K5), the exact alpha = min(0.99, op exp(power)) falls below
+// 1/255 by a relative margin of 1e-3, which the exact path's rounding (a few
+// units in the last place) cannot close, so the entry can be skipped at that
+// pixel without the exp (and, in K5, without the two divisions). With
+// ln(255 op) = l, L = max(l, 0) 1.001 + 0.001: op exp(-L) is
+// exp(-0.001 l - 0.001) / 255 for l >= 0, and below op exp(-0.001) < 1/255
+// for l < 0, where any power <= 0 gives alpha <= op. Infinite (no skip)
+// where op is NaN or negative. Computed once per entry, when it is staged.
+__device__ __forceinline__ float gs_alpha_cut(float op) {
+  const float L = fmaxf(logf(255.0f * op), 0.0f) * 1.001f + 0.001f;
+  return op >= 0.0f ? L : __int_as_float(0x7f800000);  // +inf
 }
 
 // One 2DGS surfel against one pixel (K5 composite_surfel.cu and K6
@@ -54,6 +95,23 @@ __device__ __forceinline__ float gs_power(float a, float b, float c, float dx, f
 // pixel coordinates the cross product cancels badly, and a contracted
 // multiply-add there would flip use3d, the alpha cut or the T test, so the
 // backward's T rebuilt by division would stop retracing the forward.
+// The hit is computed in three parts: gs_surfel_col the terms of px alone
+// (hu, cx - px and its square), which the pixels of one column share;
+// gs_surfel_cross the cross product and the 2D rho of one pixel; and
+// gs_surfel_finish the rest. gs_surfel_hit is the three in turn; K5 tests
+// gs_surfel_certain_miss between the second and the third.
+struct GsSurfelCol {
+  float hu[3];
+  float dx, dxdx;  // centre - pixel, and its square
+};
+
+struct GsSurfelCross {
+  float hv[3];
+  float s0, s1, sz;  // s2, guarded
+  bool guarded;
+  float dy, rho2d;
+};
+
 struct GsSurfelHit {
   float hu[3], hv[3];
   float sz;  // s2, guarded
@@ -66,36 +124,76 @@ struct GsSurfelHit {
   float depth;
 };
 
-// m: Mx0..2, My0..2, Mw0..2; dk: Dk0..2; c: the centre (cx, cy).
-__device__ __forceinline__ GsSurfelHit gs_surfel_hit(const float* m, const float* dk,
-                                                     float cx, float cy, float op,
-                                                     float px, float py) {
+// m: Mx0..2, My0..2, Mw0..2; cx: the centre's x.
+__device__ __forceinline__ GsSurfelCol gs_surfel_col(const float* m, float cx, float px) {
+  GsSurfelCol c;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c.hu[k] = __fsub_rn(__fmul_rn(px, m[6 + k]), m[k]);
+  c.dx = __fsub_rn(cx, px);
+  c.dxdx = __fmul_rn(c.dx, c.dx);
+  return c;
+}
+
+// cy: the centre's y.
+__device__ __forceinline__ GsSurfelCross gs_surfel_cross(const GsSurfelCol& c, const float* m,
+                                                         float cy, float py) {
+  GsSurfelCross x;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x.hv[k] = __fsub_rn(__fmul_rn(py, m[6 + k]), m[3 + k]);
+  x.s0 = __fsub_rn(__fmul_rn(c.hu[1], x.hv[2]), __fmul_rn(c.hu[2], x.hv[1]));
+  x.s1 = __fsub_rn(__fmul_rn(c.hu[2], x.hv[0]), __fmul_rn(c.hu[0], x.hv[2]));
+  const float s2 = __fsub_rn(__fmul_rn(c.hu[0], x.hv[1]), __fmul_rn(c.hu[1], x.hv[0]));
+  x.guarded = fabsf(s2) < 1e-9f;
+  x.sz = x.guarded ? 1e-9f : s2;
+  x.dy = __fsub_rn(cy, py);
+  // x * 0.5 rounds exactly as x / 2 (the plain version's division by the
+  // filter variance 2), and is one multiply where a division is a sequence
+  x.rho2d = __fmul_rn(__fadd_rn(c.dxdx, __fmul_rn(x.dy, x.dy)), 0.5f);
+  return x;
+}
+
+// True only where gs_surfel_finish would cut alpha to 0 at 1/255: rho2d and
+// rho3d = (s0^2 + s1^2) / s2^2 both exceed 2 L (L = gs_alpha_cut(op)), so
+// rho = min(rho3d, rho2d) does. rho3d is compared without the divisions;
+// its rounding here and in the exact path (a few units in the last place)
+// is far inside the margin of L. False where any of it is NaN.
+__device__ __forceinline__ bool gs_surfel_certain_miss(const GsSurfelCross& x, float cut) {
+  const float lim = 2.0f * cut;
+  return x.rho2d > lim && x.s0 * x.s0 + x.s1 * x.s1 > lim * (x.sz * x.sz);
+}
+
+// dk: Dk0..2.
+__device__ __forceinline__ GsSurfelHit gs_surfel_finish(const GsSurfelCol& c,
+                                                        const GsSurfelCross& x,
+                                                        const float* dk, float op) {
   GsSurfelHit h;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    h.hu[k] = __fsub_rn(__fmul_rn(px, m[6 + k]), m[k]);
-    h.hv[k] = __fsub_rn(__fmul_rn(py, m[6 + k]), m[3 + k]);
+    h.hu[k] = c.hu[k];
+    h.hv[k] = x.hv[k];
   }
-  const float s0 = __fsub_rn(__fmul_rn(h.hu[1], h.hv[2]), __fmul_rn(h.hu[2], h.hv[1]));
-  const float s1 = __fsub_rn(__fmul_rn(h.hu[2], h.hv[0]), __fmul_rn(h.hu[0], h.hv[2]));
-  const float s2 = __fsub_rn(__fmul_rn(h.hu[0], h.hv[1]), __fmul_rn(h.hu[1], h.hv[0]));
-  h.guarded = fabsf(s2) < 1e-9f;
-  h.sz = h.guarded ? 1e-9f : s2;
-  h.u = __fdiv_rn(s0, h.sz);
-  h.v = __fdiv_rn(s1, h.sz);
+  h.sz = x.sz;
+  h.guarded = x.guarded;
+  h.u = __fdiv_rn(x.s0, x.sz);
+  h.v = __fdiv_rn(x.s1, x.sz);
   const float rho3d = __fadd_rn(__fmul_rn(h.u, h.u), __fmul_rn(h.v, h.v));
-  h.dx = __fsub_rn(cx, px);
-  h.dy = __fsub_rn(cy, py);
-  // x * 0.5 rounds exactly as x / 2 (the plain version's division by the
-  // filter variance 2), and is one multiply where a division is a sequence
-  const float rho2d = __fmul_rn(__fadd_rn(__fmul_rn(h.dx, h.dx), __fmul_rn(h.dy, h.dy)), 0.5f);
-  h.use3d = rho3d <= rho2d;
-  h.G = expf(__fmul_rn(-0.5f, h.use3d ? rho3d : rho2d));
+  h.dx = c.dx;
+  h.dy = x.dy;
+  h.use3d = rho3d <= x.rho2d;
+  h.G = expf(__fmul_rn(-0.5f, h.use3d ? rho3d : x.rho2d));
   const float alpha = fminf(0.99f, __fmul_rn(op, h.G));
   h.depth = h.use3d ? __fadd_rn(__fadd_rn(__fmul_rn(dk[0], h.u), __fmul_rn(dk[1], h.v)), dk[2])
                     : dk[2];
   h.alpha = (h.depth <= 0.2f || alpha < 1.0f / 255.0f) ? 0.0f : alpha;
   return h;
+}
+
+// m: Mx0..2, My0..2, Mw0..2; dk: Dk0..2; c: the centre (cx, cy).
+__device__ __forceinline__ GsSurfelHit gs_surfel_hit(const float* m, const float* dk,
+                                                     float cx, float cy, float op,
+                                                     float px, float py) {
+  const GsSurfelCol c = gs_surfel_col(m, cx, px);
+  return gs_surfel_finish(c, gs_surfel_cross(c, m, cy, py), dk, op);
 }
 
 // Warp reduce-scatter of the backward compositors (K4 composite_bwd.cu, K6
@@ -188,25 +286,24 @@ __device__ __forceinline__ void gs_flush_rows(int batch, const int* s_id, const 
   }
 }
 
-// A surfel entry staged in shared memory by K5: its geometry row
-// (M 9, Dk 3, cx, cy, opacity), colour, view normal and Gaussian index.
-#define GS_SURFEL_GEO 15
-
-__device__ __forceinline__ void stage_surfel(
-    int t, int g, const float* __restrict__ M, const float* __restrict__ Dk,
+// A surfel entry staged in shared memory by K5 and K6: its geometry in four
+// float4 (M 9, Dk 3, centre 2, opacity, and with CUT gs_alpha_cut(opacity),
+// which only K5 reads) and its colour and view normal in two, so that a walk
+// reads it in six 16-byte loads; its Gaussian index apart. The arrays are
+// declared float4, so each record is 16-byte aligned.
+template <bool CUT>
+__device__ __forceinline__ void gs_stage_surfel(
+    int e, int g, const float* __restrict__ M, const float* __restrict__ Dk,
     const float* __restrict__ mean2d, const float* __restrict__ opacity,
-    const float* __restrict__ colors, const float* __restrict__ normals,
-    float (*s_geo)[GS_SURFEL_GEO], float (*s_rgb)[3], float (*s_nrm)[3], int* s_id) {
-  s_id[t] = g;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) s_geo[t][k] = M[9 * g + k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    s_geo[t][9 + k] = Dk[3 * g + k];
-    s_rgb[t][k] = colors[3 * g + k];
-    s_nrm[t][k] = normals[3 * g + k];
-  }
-  s_geo[t][12] = mean2d[2 * g];
-  s_geo[t][13] = mean2d[2 * g + 1];
-  s_geo[t][14] = opacity[g];
+    const float* __restrict__ colors, const float* __restrict__ normals, int* s_id,
+    float4 (*s_geo)[4], float4 (*s_cn)[2]) {
+  const float* m = M + 9 * g;
+  s_id[e] = g;
+  s_geo[e][0] = make_float4(m[0], m[1], m[2], m[3]);
+  s_geo[e][1] = make_float4(m[4], m[5], m[6], m[7]);
+  s_geo[e][2] = make_float4(m[8], Dk[3 * g], Dk[3 * g + 1], Dk[3 * g + 2]);
+  const float op = opacity[g];
+  s_geo[e][3] = make_float4(mean2d[2 * g], mean2d[2 * g + 1], op, CUT ? gs_alpha_cut(op) : 0.0f);
+  s_cn[e][0] = make_float4(colors[3 * g], colors[3 * g + 1], colors[3 * g + 2], normals[3 * g]);
+  s_cn[e][1] = make_float4(normals[3 * g + 1], normals[3 * g + 2], 0.0f, 0.0f);
 }

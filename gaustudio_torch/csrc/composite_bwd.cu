@@ -54,7 +54,7 @@
 #define GS_NSLOT 16
 #define GS_LIVE 0x3737u
 
-__global__ void __launch_bounds__(GS_BWD_THREADS) render_tiles_backward_kernel(
+__global__ void __launch_bounds__(GS_PAIR_THREADS) render_tiles_backward_kernel(
     int grid_x, int W, int H, const int* __restrict__ ranges,
     const int* __restrict__ point_list, const float* __restrict__ means2d,
     const float* __restrict__ conic, const float* __restrict__ opacity,
@@ -76,18 +76,18 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_tiles_backward_kernel(
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int px = (tile % grid_x) * GS_TILE + t % GS_TILE;
-  const int py0 = (tile / grid_x) * GS_TILE + GS_BWD_PIX * (t / GS_TILE);  // rows py0, py0 + 1
+  const int py0 = (tile / grid_x) * GS_TILE + GS_PIX * (t / GS_TILE);  // rows py0, py0 + 1
   const float pxf = (float)px;
 
   // per pixel; pixels outside the image keep nc = 0 and never contribute
-  int nc[GS_BWD_PIX];
-  float pyf[GS_BWD_PIX], T[GS_BWD_PIX], T_final[GS_BWD_PIX], dC[GS_BWD_PIX][3];
-  float dD[GS_BWD_PIX], dO[GS_BWD_PIX], dMed[GS_BWD_PIX], bg_dot[GS_BWD_PIX];
+  int nc[GS_PIX];
+  float pyf[GS_PIX], T[GS_PIX], T_final[GS_PIX], dC[GS_PIX][3];
+  float dD[GS_PIX], dO[GS_PIX], dMed[GS_PIX], bg_dot[GS_PIX];
   // suffix sums of w * colour, w * depth and w
-  float S[GS_BWD_PIX][3], SD[GS_BWD_PIX], SO[GS_BWD_PIX];
+  float S[GS_PIX][3], SD[GS_PIX], SO[GS_PIX];
   int nc_max = 0;
 #pragma unroll
-  for (int p = 0; p < GS_BWD_PIX; ++p) {
+  for (int p = 0; p < GS_PIX; ++p) {
     const int py = py0 + p;
     pyf[p] = (float)py;
     nc[p] = 0;
@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_tiles_backward_kernel(
   for (int hi = last; hi > 0; hi -= GS_BLOCK) {
     const int batch = min(GS_BLOCK, hi);
     __syncthreads();  // the previous batch has been read and flushed
-    for (int e = t; e < batch; e += GS_BWD_THREADS) {
+    for (int e = t; e < batch; e += GS_PAIR_THREADS) {
       const int g = point_list[start + hi - 1 - e];
       s_id[e] = g;
       s_xy[e] = make_float2(means2d[2 * g], means2d[2 * g + 1]);
@@ -147,7 +147,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_tiles_backward_kernel(
       for (int i = 0; i < GS_NGRAD; ++i) v[i] = 0.0f;
       bool contrib = false;
 #pragma unroll
-      for (int p = 0; p < GS_BWD_PIX; ++p) {
+      for (int p = 0; p < GS_PIX; ++p) {
         if (pos >= nc[p]) continue;
         const float dx = xy.x - pxf;
         const float dy = xy.y - pyf[p];
@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_tiles_backward_kernel(
       }
     }
     __syncthreads();
-    gs_flush_rows<GS_NGRAD, GS_BWD_THREADS>(batch, s_id, s_touched, s_grad, grads);
+    gs_flush_rows<GS_NGRAD, GS_PAIR_THREADS>(batch, s_id, s_touched, s_grad, grads);
   }
 }
 
@@ -206,7 +206,7 @@ GS_API int gs_render_tiles_backward(
     float* grads, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles > 0)
-    render_tiles_backward_kernel<<<num_tiles, GS_BWD_THREADS, 0, (cudaStream_t)stream>>>(
+    render_tiles_backward_kernel<<<num_tiles, GS_PAIR_THREADS, 0, (cudaStream_t)stream>>>(
         grid_x, W, H, ranges, point_list, means2d, conic, opacity, colors, depths, bg, final_T,
         n_contrib, dL_dcolor, dL_ddepth, dL_dfinal_T, dL_dmedian, grads);
   return gs_last_error();

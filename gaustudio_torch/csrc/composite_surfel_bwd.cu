@@ -57,7 +57,7 @@
 // entries staged at a time
 #define GS_SURFEL_BATCH 128
 
-__global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_kernel(
+__global__ void __launch_bounds__(GS_PAIR_THREADS) render_surfel_tiles_backward_kernel(
     int grid_x, int W, int H, const int* __restrict__ ranges,
     const int* __restrict__ point_list, const float* __restrict__ M,
     const float* __restrict__ Dk, const float* __restrict__ mean2d,
@@ -67,8 +67,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_k
     const float* __restrict__ dL_ddepth_sum, const float* __restrict__ dL_dm2,
     const float* __restrict__ dL_dnormal, const float* __restrict__ dL_dfinal_T,
     const float* __restrict__ dL_dmedian, float* __restrict__ grads) {
-  // an entry's geometry in four float4 (M 9, Dk 3, centre 2, opacity) and its
-  // colour and normal in two, so that a warp reads it in six 16-byte loads
+  // entries staged as gs_stage_surfel lays them out (common.cuh)
   __shared__ int s_id[GS_SURFEL_BATCH];
   __shared__ float4 s_geo[GS_SURFEL_BATCH][4];
   __shared__ float4 s_cn[GS_SURFEL_BATCH][2];
@@ -80,16 +79,16 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_k
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int px = (tile % grid_x) * GS_TILE + t % GS_TILE;
-  const int py0 = (tile / grid_x) * GS_TILE + GS_BWD_PIX * (t / GS_TILE);  // rows py0, py0 + 1
+  const int py0 = (tile / grid_x) * GS_TILE + GS_PIX * (t / GS_TILE);  // rows py0, py0 + 1
   const float pxf = (float)px;
 
   // per pixel; pixels outside the image keep nc = 0 and never contribute
-  int nc[GS_BWD_PIX];
-  float pyf[GS_BWD_PIX], T[GS_BWD_PIX], Sq[GS_BWD_PIX], dC[GS_BWD_PIX][3], dN[GS_BWD_PIX][3];
-  float dDs[GS_BWD_PIX], dM2[GS_BWD_PIX], dA[GS_BWD_PIX], dMed[GS_BWD_PIX];
+  int nc[GS_PIX];
+  float pyf[GS_PIX], T[GS_PIX], Sq[GS_PIX], dC[GS_PIX][3], dN[GS_PIX][3];
+  float dDs[GS_PIX], dM2[GS_PIX], dA[GS_PIX], dMed[GS_PIX];
   int nc_max = 0;
 #pragma unroll
-  for (int p = 0; p < GS_BWD_PIX; ++p) {
+  for (int p = 0; p < GS_PIX; ++p) {
     const int py = py0 + p;
     pyf[p] = (float)py;
     nc[p] = 0;
@@ -127,16 +126,9 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_k
   for (int hi = last; hi > 0; hi -= GS_SURFEL_BATCH) {
     const int batch = min(GS_SURFEL_BATCH, hi);
     __syncthreads();  // the previous batch has been read and flushed
-    for (int e = t; e < batch; e += GS_BWD_THREADS) {
-      const int g = point_list[start + hi - 1 - e];
-      const float* m = M + 9 * g;
-      s_id[e] = g;
-      s_geo[e][0] = make_float4(m[0], m[1], m[2], m[3]);
-      s_geo[e][1] = make_float4(m[4], m[5], m[6], m[7]);
-      s_geo[e][2] = make_float4(m[8], Dk[3 * g], Dk[3 * g + 1], Dk[3 * g + 2]);
-      s_geo[e][3] = make_float4(mean2d[2 * g], mean2d[2 * g + 1], opacity[g], 0.0f);
-      s_cn[e][0] = make_float4(colors[3 * g], colors[3 * g + 1], colors[3 * g + 2], normals[3 * g]);
-      s_cn[e][1] = make_float4(normals[3 * g + 1], normals[3 * g + 2], 0.0f, 0.0f);
+    for (int e = t; e < batch; e += GS_PAIR_THREADS) {
+      gs_stage_surfel<false>(e, point_list[start + hi - 1 - e], M, Dk, mean2d, opacity, colors,
+                             normals, s_id, s_geo, s_cn);
 #pragma unroll
       for (int k = 0; k < GS_SURFEL_NGRAD; ++k) s_grad[e][k] = 0.0f;
       s_touched[e] = 0;
@@ -155,7 +147,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_k
       for (int i = 0; i < GS_SURFEL_NGRAD; ++i) v[i] = 0.0f;
       bool contrib = false;
 #pragma unroll
-      for (int p = 0; p < GS_BWD_PIX; ++p) {
+      for (int p = 0; p < GS_PIX; ++p) {
         if (pos >= nc[p]) continue;
         const GsSurfelHit h = gs_surfel_hit(m, dk, q3.x, q3.y, op, pxf, pyf[p]);
         if (h.alpha <= 0.0f) continue;
@@ -212,7 +204,7 @@ __global__ void __launch_bounds__(GS_BWD_THREADS) render_surfel_tiles_backward_k
       }
     }
     __syncthreads();
-    gs_flush_rows<GS_SURFEL_NGRAD, GS_BWD_THREADS>(batch, s_id, s_touched, s_grad, grads);
+    gs_flush_rows<GS_SURFEL_NGRAD, GS_PAIR_THREADS>(batch, s_id, s_touched, s_grad, grads);
   }
 }
 
@@ -225,7 +217,7 @@ GS_API int gs_render_surfel_tiles_backward(
     float* grads, void* stream) {
   const int num_tiles = grid_x * grid_y;
   if (num_tiles > 0)
-    render_surfel_tiles_backward_kernel<<<num_tiles, GS_BWD_THREADS, 0, (cudaStream_t)stream>>>(
+    render_surfel_tiles_backward_kernel<<<num_tiles, GS_PAIR_THREADS, 0, (cudaStream_t)stream>>>(
         grid_x, W, H, ranges, point_list, M, Dk, mean2d, opacity, colors, normals, final_T,
         n_contrib, dL_dcolor, dL_ddepth_sum, dL_dm2, dL_dnormal, dL_dfinal_T, dL_dmedian,
         grads);

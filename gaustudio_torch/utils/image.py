@@ -1,9 +1,15 @@
-"""PNG codec from the standard library (zlib + struct) for 8-bit RGB/RGBA.
+"""Image IO: decoding as wide as the JAX package's, and a stdlib PNG codec.
 
-Stands in for PIL in the JAX package's ``save_image``
-(gaustudio_tpu/pipelines/mesh_extraction.py) and ``Camera.load_image``
-(gaustudio_tpu/cameras/__init__.py). Handles non-interlaced 8-bit images of
-colour type 2 (RGB) and 6 (RGBA), with all five scanline filters on read.
+:func:`load_image` is the counterpart of ``Camera.load_image``
+(gaustudio_tpu/cameras/__init__.py): where PIL imports, it decodes through
+PIL with ``ImageOps.exif_transpose``, as the JAX package does (JPEG, grey,
+palette, 16-bit and every other format PIL opens). Where PIL does not
+import, it reads PNGs with :func:`read_png`, from the standard library
+(zlib + struct): non-interlaced 8-bit images of colour type 0 (grey), 2
+(RGB), 3 (palette), 4 (grey + alpha) and 6 (RGBA), with all five scanline
+filters, converted as PIL's ``convert("RGB")`` converts them unless they are
+RGBA. Anything else raises, naming PIL. :func:`write_png` stands in for PIL
+in ``save_image`` (gaustudio_tpu/pipelines/mesh_extraction.py).
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples a pixel, by colour type
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:
@@ -82,14 +88,18 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit non-interlaced RGB/RGBA PNG -> uint8 [H, W, 3|4]."""
+    """Read a non-interlaced PNG -> uint8 [H, W, 4] for RGBA, else [H, W, 3]:
+    grey, grey + alpha and palette images become RGB as PIL's
+    ``convert("RGB")`` makes them (alpha and palette transparency dropped;
+    grey of 1, 2 or 4 bits scaled to 0..255). Samples are 8-bit, or 1, 2 or
+    4 bits for grey and palette images."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"not a PNG file: {path}")
+        raise ValueError(f"{path}: not a PNG file; other formats need PIL")
     pos = len(_SIGNATURE)
     idat = []
-    header = None
+    header = palette = None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -97,6 +107,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(payload)
         elif kind == b"IEND":
@@ -104,14 +116,30 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: missing IHDR")
     w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS or interlace != 0:
+    packed = color_type in (0, 3) and depth in (1, 2, 4)
+    if not (depth == 8 or packed) or color_type not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are supported "
-            f"(bit depth {depth}, colour type {color_type}, interlace {interlace})"
-        )
+            f"{path}: without PIL only non-interlaced grey, RGB, palette, grey + alpha and RGBA "
+            f"PNGs of 8-bit samples are read (bit depth {depth}, colour type {color_type}, "
+            f"interlace {interlace}); install PIL for the rest")
     c = _CHANNELS[color_type]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
-    return pixels.reshape(h, w, c)
+    raw = _unfilter(zlib.decompress(b"".join(idat)), h, (w * c * depth + 7) // 8,
+                    max(1, c * depth // 8))
+    if packed:  # one sample a pixel, depth bits each, rows padded to whole bytes
+        bits = np.unpackbits(raw, axis=1)[:, :w * depth].reshape(h, w, depth)
+        raw = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(np.uint8)
+        if color_type == 0:
+            raw *= 255 // ((1 << depth) - 1)
+    pixels = raw.reshape(h, w, c)
+    if color_type == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette image without a PLTE chunk")
+        full = np.zeros((256, 3), np.uint8)  # indices past the palette read black
+        full[:len(palette)] = palette[:256]
+        return full[pixels[..., 0]]
+    if color_type in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return pixels
 
 
 def save_image(path: str, array: np.ndarray) -> None:
@@ -120,13 +148,25 @@ def save_image(path: str, array: np.ndarray) -> None:
     write_png(path, arr)
 
 
+def _decode(path: str) -> np.ndarray:
+    """uint8 [H, W, 4] for an RGBA image, else [H, W, 3]: through PIL (with
+    the EXIF orientation applied) where it imports, else through read_png."""
+    try:
+        from PIL import Image, ImageOps
+    except ImportError:
+        return read_png(path)
+    with Image.open(path) as img:
+        img = ImageOps.exif_transpose(img)
+        return np.asarray(img if img.mode == "RGBA" else img.convert("RGB"))
+
+
 def load_image(path: str, bg_color=None) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """PNG -> (float32 [H, W, 3] in [0, 1], alpha mask [H, W] or None).
+    """An image file -> (float32 [H, W, 3] in [0, 1], alpha mask [H, W] or None).
 
     RGBA images are composited over ``bg_color`` (default black), as the JAX
-    package's ``Camera.load_image`` does.
+    package's ``Camera.load_image`` does; every other mode is converted to RGB.
     """
-    arr = read_png(path).astype(np.float32) / 255.0
+    arr = _decode(path).astype(np.float32) / 255.0
     if arr.shape[2] == 3:
         return arr, None
     bg = np.zeros(3, np.float32) if bg_color is None else np.asarray(bg_color, np.float32)

@@ -2,8 +2,9 @@
 gaustudio_tpu/utils/native.py).
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at first
-use into ``gaustudio_torch/build/``; the library's file name carries a hash
+with a plain C interface, loaded with ``ctypes``: one ``nvcc`` per source,
+all started together, then one link. The build runs at first use into
+``gaustudio_torch/build/``; the library's file name carries a hash
 of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. Every entry point returns ``cudaGetLastError()``;
 :func:`check` raises when it is not 0.
@@ -28,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -70,25 +71,46 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the library unless it exists; returns its path."""
+    """Compile the library unless it exists; returns its path. Each source
+    compiles in an nvcc of its own, all at once; ptxas's report of every
+    kernel (registers, shared memory, spills) goes to build/nvcc.log."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in cu:
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", src, "-o",
+                                     os.path.join(work, os.path.basename(src) + ".o")]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = os.path.join(work, "lib.so")
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp] + [
+            c[-1] for c, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
     build_seconds = time.perf_counter() - t0
     with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        f.write("\n".join(log))
+    if not failed:
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return out
 
 

@@ -47,14 +47,39 @@ def test_camera_matrices_match_jax(cameras_json):
             np.testing.assert_allclose(back[k], cj[k], atol=1e-9)
 
 
-def test_camera_downsample_scale_matches_jax(cameras_json):
+@pytest.mark.parametrize("scale", [2, 3])
+def test_camera_downsample_scale_matches_jax(cameras_json, scale, tmp_path):
+    """Every fixture view, as its RGB image and as an RGBA copy with a seeded
+    alpha (which gives a mask), downsampled by both packages: sizes and
+    matrices equal, image and mask within one uint8 step (1/255), the most
+    that torch's antialiased bicubic filter and PIL's differ by in rounding."""
+    from PIL import Image
+
     from gaustudio_tpu.datasets.utils import JSON_to_camera as j_json_to_camera
 
-    jc = j_json_to_camera(cameras_json[0]).downsample_scale(2)
-    tc = t_json_to_camera(cameras_json[0], device="cpu").downsample_scale(2)
-    assert (tc.image_width, tc.image_height) == (jc.image_width, jc.image_height)
-    np.testing.assert_allclose(tc.full_proj_transform.numpy(),
-                               np.asarray(jc.full_proj_transform), atol=1e-6)
+    rng = np.random.default_rng(scale)
+    for cj in cameras_json:
+        path = os.path.join(FIXTURE, "images", cj["img_name"])
+        rgb = np.asarray(Image.open(path).convert("RGB"))
+        alpha = Image.fromarray(rng.integers(0, 256, (16, 16), dtype=np.uint8))
+        rgba = str(tmp_path / "rgba.png")
+        Image.fromarray(np.dstack([rgb, np.asarray(alpha.resize(rgb.shape[1::-1]))])).save(rgba)
+        for image in (path, rgba):
+            jc = j_json_to_camera(cj)
+            jc.load_image(image)
+            jc = jc.downsample_scale(scale)
+            tc = t_json_to_camera(cj, device="cpu")
+            tc.load_image(image)
+            tc = tc.downsample_scale(scale)
+            assert (tc.image_width, tc.image_height) == (jc.image_width, jc.image_height)
+            np.testing.assert_allclose(tc.full_proj_transform.numpy(),
+                                       np.asarray(jc.full_proj_transform), atol=1e-6)
+            np.testing.assert_allclose(tc.image.numpy(), np.asarray(jc.image), rtol=0,
+                                       atol=1 / 255 + 1e-6)
+            assert (tc.mask is None) == (jc.mask is None) == (image == path)
+            if jc.mask is not None:
+                np.testing.assert_allclose(tc.mask.numpy(), np.asarray(jc.mask), rtol=0,
+                                           atol=1 / 255 + 1e-6)
 
 
 @pytest.mark.parametrize("deg", [0, 1, 2, 3])

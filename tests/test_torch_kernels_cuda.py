@@ -2,9 +2,10 @@
 without the cull, K5 surfel forward, K6 surfel backward) against their plain
 PyTorch versions, on the card. Skipped where torch sees no CUDA device.
 
-The hard cases of K2, K4 and K6 (chip_smoke.py hard_case and k2_cases: a
-Gaussian or surfel in every tile, warps that end far apart, more than 256
-entries a pixel; empty and single-entry tiles) run here too.
+The hard cases of K2-K6 (chip_smoke.py hard_case and k2_cases: a Gaussian
+or surfel in every tile, warps that end far apart, more than 256 entries a
+pixel, a ragged image whose bottom tiles hold an odd number of rows; empty
+and single-entry tiles) run here too.
 
 This file imports no jax. tests/conftest.py does, and the machine with the
 card has no jax, so there pytest runs it without the conftest
@@ -187,6 +188,14 @@ def test_render_surfel_tiles_backward_matches_plain(surfels):
     for name, g, r in zip(got._fields, got, want):
         scale = float(r.abs().max()) + 1e-6
         torch.testing.assert_close(g / scale, r / scale, rtol=2e-3, atol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("case", chip_smoke.HARD_CASES)
+def test_render_tiles_hard_case_matches_plain(case, cuda):
+    """K1-K3 on a hard case: K3's floats within abs 1e-5 + rel 1e-5, its
+    median id and n_contrib exactly (compare_kernels raises)."""
+    pre, w, h = chip_smoke.hard_case(case, cuda)
+    chip_smoke.compare_kernels(pre, w, h)
 
 
 @pytest.mark.parametrize("case", chip_smoke.HARD_CASES)
