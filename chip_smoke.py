@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / CUDA port (gaustudio_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --ab PARENT    # K3-K6 of two checkouts, in turns
+    python3 chip_smoke.py --ab PARENT    # K1-K6 of two checkouts, in turns
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
@@ -18,13 +18,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    SH-3 model (K1-K4) and of a 200k-surfel SH-3 model (K1, K2, K5, K6), with
    the tolerances stated below; then each kernel's time against its plain
    version's (and, for K2, torch.searchsorted's) at the 1080p shapes (K1, K2
-   and torch.searchsorted on the device by torch.profiler, with the host
-   time of a call beside it; the others by CUDA events), and the time of the
-   torch-op stages (activations + preprocess, the sort); then K1-K6 on
-   the hard cases (hard_case: one Gaussian or surfel in every tile, warps
-   that end far apart, more than 256 entries a pixel, a ragged image whose
-   bottom tiles hold an odd number of rows) and K2 on empty and
-   single-entry tiles;
+   and torch.searchsorted on the device by torch.profiler, K1 over every op
+   of its wrapper, with the host time of a call beside it; the others by
+   CUDA events), and the time of the torch-op stages (activations +
+   preprocess, the sort); then K1-K6 on the hard cases (hard_case: one
+   Gaussian or surfel in every tile, warps that end far apart, more than
+   256 entries a pixel, a ragged image whose bottom tiles hold an odd number
+   of rows), K1 in both modes on its own (k1_case: a full-screen primitive
+   among thousands of small ones, 1, 31 and 33 primitives, rows with no
+   tiles inside a warp, a view where the cull keeps nothing) and K2 on empty
+   and single-entry tiles;
 4. render path on the fixture: gs-render on tests/fixtures/mini_scene, and
    the renderer's PSNR against GOLDEN.json (within 0.15 dB);
 5. render path at full width: gs-render of the 300k model from three
@@ -39,7 +42,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    30 steps from the fixture's model, one camera sequence, final PSNR
    within 0.1 dB;
 7. training at full width: 30 steps and one densify at 1920x1080 / 300k /
-   SH 3 and at 512x512 / 100k, with ms per iteration and a breakdown;
+   SH 3 and at 512x512 / 100k, with ms per iteration, the device's busy
+   share of a step and a breakdown;
 8. 2DGS render path at full width: gs-render --config 2dgs of the 200k-surfel
    model from three 1920x1080 cameras, with the launch counts, the lit
    fraction (alpha > 0.01), rasterize_surfels() timed warm against the
@@ -51,7 +55,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 9b. 2DGS training with the kernels against the plain versions: 12 steps,
    one camera sequence, final PSNR within 0.1 dB;
 10. 2DGS training at 512x512 / 60k surfels: 30 steps and one densify, with
-   ms per iteration and a breakdown.
+   ms per iteration, the device's busy share of a step and a breakdown.
 
 Each path (phases 4, 5, 6, 8 and 9) is driven with every launch count set to
 0 just before it and read just after; a kernel of the path that was not
@@ -62,11 +66,13 @@ render and training paths (phases 5, 6, 8 and 9). The last two lines are
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
 and nothing of the JAX package or its benchmark scripts.
 
-``--ab PARENT`` runs none of the phases: it times K3 and K4 at 1080p/300k
-and K5 and K6 at 1080p/200k surfels through the gaustudio_torch of the
-checkout at PARENT and of this one, in turns (parent, this, this, parent),
-each in a process of its own (``--time-backward --tree DIR``, which prints
-the four kernels' times as one JSON line), and prints the four ratios.
+``--ab PARENT`` runs none of the phases: it times K1 with the cull, K2, K3
+and K4 at 1080p/300k and K1 without the cull, K5 and K6 at 1080p/200k
+surfels (K1 by the device time of every op of its wrapper and by host time
+per call) through the gaustudio_torch of the checkout at PARENT and of this
+one, in turns (parent, this, this, parent), each in a process of its own
+(``--time-backward --tree DIR``, which prints the times as one JSON line),
+and prints each ratio.
 """
 
 from __future__ import annotations
@@ -140,6 +146,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                                      "gaustudio_tpu/ops/rasterize_surfel_pallas_bwd.py:57 (B8), "
                                      "gaustudio_tpu/ops/rasterize_pallas_bwd.py:451 (B5)"),
 }
+# K1's kernels by name, of this design and of the one before it (so that
+# --ab can print a parent's by-name time too)
+K1_KERNEL_NAMES = ("count_entries_kernel", "scan_warp_counts_kernel", "write_entries_kernel",
+                   "count_tiles_kernel", "write_keys_kernel")
 FORWARD = ("duplicate_with_keys", "identify_tile_ranges", "render_tiles")
 SURFEL_FORWARD = ("duplicate_with_keys", "identify_tile_ranges", "render_surfel_tiles")
 
@@ -343,12 +353,7 @@ def compare_kernels(pre, W: int, H: int) -> dict:
     from gaustudio_torch.ops import binning, composite
 
     gx, gy = (W + 15) // 16, (H + 15) // 16
-    keys, gids = binning.duplicate_with_keys(pre, gx)
-    keys_p, gids_p = binning.duplicate_with_keys_plain(pre, gx)
-    check(keys.shape == keys_p.shape, f"K1 entry count {keys.shape[0]} != plain {keys_p.shape[0]}")
-    k1_err = max(int((keys - keys_p).abs().max()), int((gids - gids_p).abs().max())) \
-        if keys.numel() else 0
-
+    k1_err, keys, gids = compare_k1(pre, gx, True, f"{W}x{H}")
     sorted_keys, order = torch.sort(keys, stable=True)
     ranges = binning.identify_tile_ranges(sorted_keys, gx * gy)
     ranges_p = binning.identify_tile_ranges_plain(sorted_keys, gx * gy)
@@ -374,7 +379,6 @@ def compare_kernels(pre, W: int, H: int) -> dict:
         f"{int(((ranges[:, 1] - ranges[:, 0]) - (ranges_p[:, 1] - ranges_p[:, 0])).abs().max())}),"
         f" K3 max|err| {k3_err:.3e} (tol {K3_ATOL:g} + {K3_RTOL:g}*|x|), K3 int mismatches "
         f"{int_mismatch}")
-    check(k1_err == 0, "K1 disagrees with its plain version")
     check(k2_err == 0, "K2 disagrees with its plain version")
     check(int_mismatch == 0, "K3 median id / n_contrib disagree with the plain version")
     return {"duplicate_with_keys": k1_err, "identify_tile_ranges": k2_err, "render_tiles": k3_err}
@@ -422,27 +426,52 @@ def compare_backward(pre, W: int, H: int, seed: int):
     return abs_err, args
 
 
-def device_ms(fn, names=None, iters: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn`` in the CUDA kernels whose
-    names hold one of ``names`` (every kernel and copy with None), from
-    torch.profiler over ``iters`` warm calls; raises where the profiler
-    recorded no device time for them."""
+def _named(key: str, names) -> bool:
+    return names is None or any(n in key for n in names)
+
+
+def device_us_by_op(fn, iters: int = 20, names=None) -> dict:
+    """{CUDA kernel or copy: mean device microseconds per call of ``fn``},
+    from torch.profiler over ``iters`` warm calls. On the card the profiler
+    can return a window without the kernels' events: a window with no
+    device time in an op named by one of ``names`` (in any op with None) is
+    taken again, three windows at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and (names is None or any(n in ev.key for n in names)):
-            us += float(getattr(ev, "self_device_time_total", None)
-                        or getattr(ev, "self_cuda_time_total", 0.0))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = {ev.key: float(getattr(ev, "self_device_time_total", None)
+                             or getattr(ev, "self_cuda_time_total", 0.0)) / iters
+               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+        if any(us > 0 and _named(key, names) for key, us in ops.items()):
+            break
+    return ops
+
+
+def device_ms(fn, names=None, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn`` in the CUDA kernels whose
+    names hold one of ``names`` (every kernel and copy with None), from
+    torch.profiler over ``iters`` warm calls; raises where the profiler
+    recorded no device time for them."""
+    us = sum(t for key, t in device_us_by_op(fn, iters, names).items() if _named(key, names))
     check(us > 0, f"torch.profiler recorded no device time for the kernels {names}")
-    return us / iters / 1e3
+    return us / 1e3
+
+
+def k1_breakdown(fn) -> tuple[float, str]:
+    """(device ms of K1's kernels by name, each op's device microseconds per
+    call) of one profiled window of ``fn``, which calls K1's wrapper."""
+    ops = device_us_by_op(fn, names=K1_KERNEL_NAMES)
+    named = sum(us for key, us in ops.items() if _named(key, K1_KERNEL_NAMES))
+    check(named > 0, f"torch.profiler recorded no device time for the kernels {K1_KERNEL_NAMES}")
+    return named / 1e3, ", ".join(f"{key.split('(')[0].replace('void ', '').strip()} {us:.2f}"
+                                  for key, us in ops.items())
 
 
 def host_us(fn, iters: int = 20) -> float:
@@ -459,7 +488,8 @@ def host_us(fn, iters: int = 20) -> float:
 def busy_share(tag: str, fn, wall_s: float, card: str) -> None:
     """Prints the device's busy share of one warm call of ``fn``: the device
     time of every kernel and copy that torch.profiler records in it (mean of
-    5 calls) over ``wall_s``, the call's mean host-clock wall unprofiled."""
+    5 calls) over ``wall_s``, the call's host-clock wall unprofiled (the mean
+    or median of the calls already timed)."""
     busy = device_ms(fn, iters=5)
     say("time", f"{tag}: device busy {busy:.4f} ms of {wall_s * 1e3:.4f} ms wall per call, "
         f"busy share {busy / (wall_s * 1e3):.4f} (torch.profiler) | {card}")
@@ -472,10 +502,12 @@ def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
 
     K1, K2 and K2's yardstick torch.searchsorted move ~10 MB a call, less
     device time than their wrappers take on the host, so CUDA events around
-    back-to-back calls would time the host: their ms is the device time of
-    their kernels by name (K1: count_tiles_kernel + write_keys_kernel, whose
-    wrapper also syncs the host to size its output), printed beside the host
-    microseconds per wrapper call. K3's ms is from CUDA events."""
+    back-to-back calls would time the host. K1's ms is the device time of
+    every kernel and copy its wrapper launches (its two kernels and the
+    read-back of the entry count; the kernels by name are printed too), K2's
+    and torch.searchsorted's that of their kernels by name, each printed
+    beside the host microseconds per wrapper call. K3's ms is from CUDA
+    events."""
     from gaustudio_torch.ops import binning, composite
 
     with torch.inference_mode():
@@ -489,8 +521,7 @@ def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
     # K2's library yardstick: one torch.searchsorted of every tile's first key
     bounds = torch.arange(gx * gy + 1, dtype=torch.int64, device=keys.device) << 32
     calls = {
-        "duplicate_with_keys": (lambda: binning.duplicate_with_keys(pre, gx),
-                                ("count_tiles_kernel", "write_keys_kernel")),
+        "duplicate_with_keys": (lambda: binning.duplicate_with_keys(pre, gx), None),
         "identify_tile_ranges": (lambda: binning.identify_tile_ranges(sorted_keys, gx * gy),
                                  ("identify_tile_ranges_kernel",)),
         "torch.searchsorted": (lambda: torch.searchsorted(sorted_keys, bounds), ("searchsorted",)),
@@ -499,6 +530,10 @@ def time_kernels(pre, W: int, H: int, card: str, preprocess) -> dict:
     for name, (ms, us) in dev.items():
         say("time", f"{name} {W}x{H}: device {ms:.4f} ms (torch.profiler), host {us:.1f} us "
             f"per call | {card}")
+    named_ms, by_op = k1_breakdown(calls["duplicate_with_keys"][0])
+    say("time", f"duplicate_with_keys {W}x{H}: its kernels by name {named_ms:.4f} ms of the "
+        f"{dev['duplicate_with_keys'][0]:.4f} ms of every op; us per call by op: {by_op} "
+        f"(torch.profiler) | {card}")
     k2, lib = dev["identify_tile_ranges"][0], dev["torch.searchsorted"][0]
     say("time", f"identify_tile_ranges on the device: {k2 / lib:.3f}x torch.searchsorted's time "
         f"({'slower' if k2 > lib else 'no slower'}) | {card}")
@@ -543,16 +578,10 @@ def compare_surfel_kernels(pre, W: int, H: int, seed: int):
     surfel view (K6 with seeded random cotangents on every differentiable
     output). Returns ({kernel: max abs error}, K5's arguments, K6's
     arguments)."""
-    from gaustudio_torch.ops import binning, composite_surfel, rasterize_surfel
+    from gaustudio_torch.ops import composite_surfel, rasterize_surfel
 
-    gx = (W + 15) // 16
-    bin_in = rasterize_surfel.binning_input(pre)
-    keys, gids = binning.duplicate_with_keys(bin_in, gx, cull=False)
-    keys_p, gids_p = binning.duplicate_with_keys_plain(bin_in, gx, cull=False)
-    check(keys.shape == keys_p.shape, f"K1 (no cull) entry count {keys.shape[0]} != plain "
-          f"{keys_p.shape[0]}")
-    k1_err = max(int((keys - keys_p).abs().max()), int((gids - gids_p).abs().max()))
-    check(k1_err == 0, "K1 without the cull disagrees with its plain version")
+    k1_err, _, _ = compare_k1(rasterize_surfel.binning_input(pre), (W + 15) // 16, False,
+                              f"{W}x{H} surfels")
     b, fwd_args, out, bwd_args = surfel_args(pre, W, H, seed)
     check(b.num_rendered == int(pre.tiles_touched.sum()),
           "K1 without the cull dropped entries of the rects")
@@ -699,10 +728,118 @@ def k2_cases(device) -> dict:
             "one full tile": (keys([4] * 300), 12)}
 
 
+K1_CASES = ("full_screen", "n1", "n31", "n33", "zero_tile_rows", "all_culled")
+
+
+def k1_case_arrays(name: str, W: int = FULL_W, H: int = FULL_H) -> dict:
+    """The fields of a Preprocessed, as float32 / int32 / bool numpy arrays
+    (seeded), of a view that stresses K1's warp walk, with K1 in both modes
+    held to its plain version on it:
+
+    * full_screen: one primitive (index n // 4) whose rect is the whole grid
+      (8160 tiles at 1920x1080), the tiles at its rim culled, among small
+      ones (4000 on a view above 512x512, else 200);
+    * n1, n31, n33: 1, 31 and 33 primitives, so that the only or last warp
+      is ragged, with rects up to ~16 tiles wide;
+    * zero_tile_rows: every third row and one whole warp (rows 64-95) have
+      tiles_touched 0, valid False and a rect of garbage (its min past its
+      max), which the walk must never decode;
+    * all_culled: every opacity below 1/255, so the cull keeps nothing
+      (L = 0), while without it every rect tile stays.
+    """
+    rng = np.random.default_rng(K1_CASES.index(name) + 41)
+    gx, gy = (W + 15) // 16, (H + 15) // 16
+    n = {"n1": 1, "n31": 31, "n33": 33}.get(name, 4000 if W * H > 512 * 512 else 200)
+    mx, my = rng.uniform(0, W, n), rng.uniform(0, H, n)
+    radius = rng.uniform(2, 120 if n < 64 else 24, n)
+    sx, sy = radius / 3 * rng.uniform(0.6, 1.0, n), radius / 3 * rng.uniform(0.6, 1.0, n)
+    rho = rng.uniform(-0.5, 0.5, n)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)  # the conic inverts [[sx^2, r sx sy], [r sx sy, sy^2]]
+    conic = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det], 1)
+    rect_min = np.stack([np.clip(np.floor((mx - radius) / 16), 0, gx),
+                         np.clip(np.floor((my - radius) / 16), 0, gy)], 1)
+    rect_max = np.stack([np.clip(np.floor((mx + radius + 15) / 16), 0, gx),
+                         np.clip(np.floor((my + radius + 15) / 16), 0, gy)], 1)
+    op = rng.uniform(0.02, 0.95, n)
+    if name == "full_screen":
+        i = n // 4
+        mx[i], my[i], op[i] = W / 2, H / 2, 0.9
+        # q ~ 16 at the corner tiles' inner corners, above the cull's
+        # threshold 2 ln(0.9 x 255) = 10.9
+        a = 16 / (max(W / 2 - 16, 1) ** 2 + max(H / 2 - 16, 1) ** 2)
+        conic[i] = (a, 0.0, a)
+        rect_min[i], rect_max[i] = (0, 0), (gx, gy)
+    elif name == "all_culled":
+        op = rng.uniform(0.0005, 0.0039, n)
+    tiles = (rect_max - rect_min).prod(1)
+    if name == "zero_tile_rows":
+        zero = np.zeros(n, bool)
+        zero[::3] = zero[64:96] = True
+        tiles[zero] = 0
+        rect_min[zero] = rng.integers(0, max(gx, gy), (int(zero.sum()), 2)) + 5
+        rect_max[zero] = rect_min[zero] - rng.integers(1, 5, (int(zero.sum()), 2))
+    f32, i32 = np.float32, np.int32
+    return {"valid": tiles > 0, "depths": rng.uniform(0.5, 20.0, n).astype(f32),
+            "means2d": np.stack([mx, my], 1).astype(f32), "conic": conic.astype(f32),
+            "opacities": op.astype(f32), "colors": np.zeros((n, 3), f32),
+            "radii": np.where(tiles > 0, np.ceil(radius), 0).astype(i32),
+            "rect_min": rect_min.astype(i32), "rect_max": rect_max.astype(i32),
+            "tiles_touched": tiles.astype(i32)}
+
+
+def k1_case(name: str, device, W: int = FULL_W, H: int = FULL_H):
+    """(Preprocessed, W, H) of k1_case_arrays on ``device``."""
+    from gaustudio_torch.ops.gaussian import Preprocessed
+
+    arrays = k1_case_arrays(name, W, H)
+    return Preprocessed(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()}), W, H
+
+
+def check_k1_case(name: str, pre, W: int, H: int, gids, entries_without_cull: int) -> None:
+    """Raises unless a case of k1_case stresses what it is for; ``gids`` are
+    K1's indices with the cull, ``entries_without_cull`` its entry count
+    without."""
+    tiles, n = pre.tiles_touched, pre.tiles_touched.shape[0]
+    if name == "full_screen":
+        i, full = n // 4, ((W + 15) // 16) * ((H + 15) // 16)
+        kept = int((gids == i).sum())
+        check(int(tiles[i]) == full and 0 < kept < full,
+              f"full_screen: primitive {i} has {int(tiles[i])} rect tiles of {full}, "
+              f"{kept} kept by the cull")
+    elif name in ("n1", "n31", "n33"):
+        check(n == int(name[1:]), f"{name}: {n} primitives")
+    elif name == "zero_tile_rows":
+        zero = tiles == 0
+        check(bool(zero[64:96].all()) and 0 < int(zero[:32].sum()) < 32
+              and bool((pre.rect_min[zero] > pre.rect_max[zero]).all()),
+              "zero_tile_rows: no warp with both kinds of rows, or no warp of zero rows, "
+              "or a zero row with an ordered rect")
+    elif name == "all_culled":
+        check(gids.shape[0] == 0 and entries_without_cull > 0,
+              f"all_culled: {gids.shape[0]} entries kept, {entries_without_cull} without the cull")
+
+
+def compare_k1(pre, grid_x: int, cull: bool, what: str) -> tuple:
+    """K1 against its plain version on ``pre``; raises unless keys and
+    indices are equal element for element. Returns (max abs error, the
+    kernel's keys, its indices)."""
+    from gaustudio_torch.ops import binning
+
+    keys, gids = binning.duplicate_with_keys(pre, grid_x, cull)
+    keys_p, gids_p = binning.duplicate_with_keys_plain(pre, grid_x, cull)
+    mode = "" if cull else " (no cull)"
+    check(keys.shape == keys_p.shape and gids.shape == gids_p.shape,
+          f"K1{mode} {what}: entry count {keys.shape[0]} != plain {keys_p.shape[0]}")
+    err = max(int((keys - keys_p).abs().max()), int((gids - gids_p).abs().max())) \
+        if keys.numel() else 0
+    check(err == 0, f"K1{mode} {what}: disagrees with its plain version (max|err| {err})")
+    return err, keys, gids
+
+
 def compare_hard_cases(device) -> dict:
     """K1-K4 against their plain versions on the hard cases, K1 without the
-    cull, K5 and K6 on their surfel forms, and K2 on the cases of k2_cases;
-    returns {kernel: max abs error}."""
+    cull, K5 and K6 on their surfel forms, K1 in both modes on the cases of
+    k1_case and K2 on those of k2_cases; returns {kernel: max abs error}."""
     from gaustudio_torch.ops import binning
 
     errs = {}
@@ -718,6 +855,20 @@ def compare_hard_cases(device) -> dict:
             name, args[0], args[1], args[9], W, H))
         for k, err in {**k_errs, **surfel_errs}.items():
             errs[k] = max(errs.get(k, 0), err)
+    for name in K1_CASES:
+        pre, W, H = k1_case(name, device)
+        gx = (W + 15) // 16
+        entries, gids = [], None
+        for cull in (True, False):
+            err, keys, got = compare_k1(pre, gx, cull, f"case {name}")
+            errs["duplicate_with_keys"] = max(errs.get("duplicate_with_keys", 0), err)
+            entries.append(keys.shape[0])
+            gids = got if cull else gids
+        check_k1_case(name, pre, W, H, gids, entries[1])
+        say("kernels", f"K1 case {name}: {pre.depths.shape[0]} primitives on {W}x{H}, largest "
+            f"rect {int(pre.tiles_touched.max())} tiles, {int((pre.tiles_touched == 0).sum())} "
+            f"with none; entries {entries[0]} with the cull, {entries[1]} without; "
+            "max|err| 0 in both modes")
     for name, (keys, num_tiles) in k2_cases(device).items():
         got = binning.identify_tile_ranges(keys, num_tiles)
         want = binning.identify_tile_ranges_plain(keys, num_tiles)
@@ -796,15 +947,24 @@ def surfel_bounds(bwd_args, W: int, H: int) -> dict:
 
 def time_surfel_kernels(pre, fwd_args, bwd_args, W: int, H: int, card: str) -> dict:
     """{kernel: (ms, plain_ms)} of K5 and K6 at the shapes of one view; also
-    prints K1's time without the cull on the same view."""
+    prints K1's time without the cull on the same view (the device time of
+    every op of its wrapper, as time_kernels takes it with the cull, its
+    kernels by name, its host time per call) beside its bound: the bytes of
+    rects, tiles and depth read and of the entries written."""
     from gaustudio_torch.ops import binning, rasterize_surfel
     from gaustudio_torch.ops import composite_surfel as cs
 
     bin_in = rasterize_surfel.binning_input(pre)
     gx = (W + 15) // 16
-    say("time", f"duplicate_with_keys without the cull {W}x{H} surfels: kernel "
-        f"{cuda_ms(lambda: binning.duplicate_with_keys(bin_in, gx, cull=False), 20):.4f} ms, "
-        f"plain {cuda_ms(lambda: binning.duplicate_with_keys_plain(bin_in, gx, cull=False), 5):.4f}"
+    k1 = lambda: binning.duplicate_with_keys(bin_in, gx, cull=False)  # noqa: E731
+    entries = k1()[0].shape[0]
+    bound, by = bound_ms(bin_in.depths.shape[0] * 24 + entries * 12, 0)
+    named_ms, by_op = k1_breakdown(k1)
+    say("time", f"duplicate_with_keys without the cull {W}x{H} surfels ({entries} entries): "
+        f"device {device_ms(k1):.4f} ms (torch.profiler, every op; its kernels by name "
+        f"{named_ms:.4f} ms; us per call by op: {by_op}), "
+        f"host {host_us(k1):.1f} us per call, bound {bound:.4f} ms ({by}); plain "
+        f"{cuda_ms(lambda: binning.duplicate_with_keys_plain(bin_in, gx, cull=False), 5):.4f}"
         f" ms | {card}")
 
     times = {
@@ -1174,6 +1334,8 @@ def train_at_scale(out_dir: str, ply: str, cams_path: str, device, card: str, la
     bwd_launches = read_counts()[backward_kernel]
     check(bwd_launches == steps, f"{backward_kernel} launched {bwd_launches} times in {steps} steps")
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    busy_share(f"{label} training step", lambda: step(state, batches[0]),
+               statistics.median(wall[5:]) / 1e3, card)
     runs = [step_breakdown(state, batches[i % len(batches)], settings, render, loss_fn, cfg)
             for i in range(5)]
     breakdown = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
@@ -1269,25 +1431,35 @@ def main_path_surfel(out_dir: str, ply: str, cams_path: str, device, card: str) 
     return counts
 
 
-# --- the compositors of two checkouts, in turns ----------------------------
+# --- the kernels of two checkouts, in turns ---------------------------------
 
-COMPOSITORS = ("render_tiles", "render_tiles_backward", "render_surfel_tiles",
-               "render_surfel_tiles_backward")
+# (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
+# without it (1080p/200k surfels), by the device time of every op of its
+# wrapper and by host time per call, and by its kernels' names; K2; K3-K6
+AB_TIMES = (("duplicate_with_keys", "ms"), ("duplicate_with_keys_host", "us"),
+            ("duplicate_with_keys_by_name", "ms"), ("duplicate_with_keys_nocull", "ms"),
+            ("duplicate_with_keys_nocull_host", "us"), ("duplicate_with_keys_nocull_by_name", "ms"),
+            ("identify_tile_ranges", "ms"), ("render_tiles", "ms"),
+            ("render_tiles_backward", "ms"), ("render_surfel_tiles", "ms"),
+            ("render_surfel_tiles_backward", "ms"))
 
 
-def time_compositors(device, card: str, reps: int = 3) -> dict:
-    """K3 and K4 at 1080p/300k and K5 and K6 at 1080p/200k surfels (phase 3's
-    middle view, scenes and cotangents), CUDA events over 20 calls, ``reps``
-    times each, through the gaustudio_torch that this process imported."""
+def time_for_ab(device, card: str, reps: int = 3) -> dict:
+    """Each time of AB_TIMES, ``reps`` times, through the gaustudio_torch that
+    this process imported, on phase 3's middle 1080p view, scenes and
+    cotangents: K1 and K2 by torch.profiler over 20 calls (device_ms), K1's
+    host time over 20 calls (host_us), K3-K6 by CUDA events over 20 calls.
+    Only calls that every checkout since K1's no-cull mode has."""
     import gaustudio_torch
     from gaustudio_torch import renderers
     from gaustudio_torch.datasets.utils import JSON_to_camera
     from gaustudio_torch.models.vanilla import VanillaPointCloud
-    from gaustudio_torch.ops import composite, composite_surfel
+    from gaustudio_torch.ops import binning, composite, composite_surfel, rasterize_surfel
     from gaustudio_torch.utils import kernels
 
     kernels.load()
     cam = JSON_to_camera(scene_cameras(FULL_W, FULL_H)[1], device=device)
+    gx, gy = (FULL_W + 15) // 16, (FULL_H + 15) // 16
     result = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(gaustudio_torch.__file__))),
               "card": card}
     pcd = VanillaPointCloud.from_jax_params(full_scene_params(), device=device)
@@ -1295,28 +1467,50 @@ def time_compositors(device, card: str, reps: int = 3) -> dict:
     pre = view_preprocess(renderers.make({"name": "vanilla_renderer"}, device=device), cam, pcd)
     args = backward_args(pre, FULL_W, FULL_H, seed=1)
     fwd_args = args[:7] + args[-4:]
-    result["render_tiles"] = [
-        cuda_ms(lambda: composite.render_tiles(*fwd_args), 20) for _ in range(reps)]
-    result["render_tiles_backward"] = [
-        cuda_ms(lambda: composite.render_tiles_backward(*args), 20) for _ in range(reps)]
-    del pcd, pre, args, fwd_args
+    sorted_keys, _ = torch.sort(binning.duplicate_with_keys(pre, gx)[0], stable=True)
+    bin_in = None
+
+    def k1(cull):
+        return lambda: binning.duplicate_with_keys(pre if cull else bin_in, gx, cull)
+
+    calls = {
+        "duplicate_with_keys": lambda: device_ms(k1(True)),
+        "duplicate_with_keys_host": lambda: host_us(k1(True)),
+        "duplicate_with_keys_by_name": lambda: device_ms(k1(True), K1_KERNEL_NAMES),
+        "identify_tile_ranges": lambda: device_ms(
+            lambda: binning.identify_tile_ranges(sorted_keys, gx * gy)),
+        "render_tiles": lambda: cuda_ms(lambda: composite.render_tiles(*fwd_args), 20),
+        "render_tiles_backward": lambda: cuda_ms(
+            lambda: composite.render_tiles_backward(*args), 20),
+    }
+    for name, fn in calls.items():
+        result[name] = [fn() for _ in range(reps)]
+    del pcd, pre, args, fwd_args, sorted_keys
     pcd = VanillaPointCloud.from_jax_params(surfel_scene_params(), device=device,
                                             config=SURFEL_CONFIG)
     pcd.active_sh_degree = 3
     pre = view_preprocess_surfel(renderers.make({"name": "surfel_renderer"}, device=device),
                                  cam, pcd)
+    bin_in = rasterize_surfel.binning_input(pre)
     _, fwd_args, _, bwd_args = surfel_args(pre, FULL_W, FULL_H, seed=3)
-    result["render_surfel_tiles"] = [
-        cuda_ms(lambda: composite_surfel.render_surfel_tiles(*fwd_args), 20) for _ in range(reps)]
-    result["render_surfel_tiles_backward"] = [
-        cuda_ms(lambda: composite_surfel.render_surfel_tiles_backward(*bwd_args), 20)
-        for _ in range(reps)]
+    calls = {
+        "duplicate_with_keys_nocull": lambda: device_ms(k1(False)),
+        "duplicate_with_keys_nocull_host": lambda: host_us(k1(False)),
+        "duplicate_with_keys_nocull_by_name": lambda: device_ms(k1(False), K1_KERNEL_NAMES),
+        "render_surfel_tiles": lambda: cuda_ms(
+            lambda: composite_surfel.render_surfel_tiles(*fwd_args), 20),
+        "render_surfel_tiles_backward": lambda: cuda_ms(
+            lambda: composite_surfel.render_surfel_tiles_backward(*bwd_args), 20),
+    }
+    for name, fn in calls.items():
+        result[name] = [fn() for _ in range(reps)]
     return result
 
 
-def ab_compositors(parent: str, card: str) -> None:
-    """K3-K6 of the checkout at ``parent`` and of this one, timed in turns
-    (parent, this, this, parent), each in a process of its own on this card."""
+def ab_kernels(parent: str, card: str) -> None:
+    """The times of AB_TIMES of the checkout at ``parent`` and of this one,
+    taken in turns (parent, this, this, parent), each in a process of its own
+    on this card; prints each mean and ratio."""
     runs = []
     for tree in (parent, REPO, REPO, parent):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-backward",
@@ -1325,10 +1519,10 @@ def ab_compositors(parent: str, card: str) -> None:
               f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         say("ab", json.dumps(runs[-1]))
-    for name in COMPOSITORS:
-        before = statistics.mean(ms for r in (runs[0], runs[3]) for ms in r[name])
-        after = statistics.mean(ms for r in (runs[1], runs[2]) for ms in r[name])
-        say("ab", f"{name}: parent {before:.4f} ms, this checkout {after:.4f} ms, ratio "
+    for name, unit in AB_TIMES:
+        before = statistics.mean(t for r in (runs[0], runs[3]) for t in r[name])
+        after = statistics.mean(t for r in (runs[1], runs[2]) for t in r[name])
+        say("ab", f"{name}: parent {before:.4f} {unit}, this checkout {after:.4f} {unit}, ratio "
             f"{after / before:.4f} (means of 2 x 3 windows of 20 calls) | {card}")
 
 
@@ -1337,11 +1531,11 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(REPO, "gaustudio_torch", "build", "smoke"),
                         help="directory for the generated scene and the rendered images")
     parser.add_argument("--ab", metavar="PARENT",
-                        help="only time K3-K6 of the checkout at PARENT and of this one, "
+                        help="only time K1-K6 of the checkout at PARENT and of this one, "
                              "in turns (parent, this, this, parent)")
     parser.add_argument("--time-backward", action="store_true",
-                        help="only time the compositors K3-K6 at the 1080p shapes and print "
-                             "one JSON line")
+                        help="only time K1 (both modes), K2 and the compositors K3-K6 at the "
+                             "1080p shapes and print one JSON line")
     parser.add_argument("--tree", default=REPO,
                         help="with --time-backward: the checkout whose gaustudio_torch to use")
     args = parser.parse_args(argv)
@@ -1358,11 +1552,11 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     card = card_line()
     if args.time_backward:
-        print(json.dumps(time_compositors(device, card)), flush=True)
+        print(json.dumps(time_for_ab(device, card)), flush=True)
         return 0
     print(card, flush=True)
     if args.ab:
-        ab_compositors(os.path.abspath(args.ab), card)
+        ab_kernels(os.path.abspath(args.ab), card)
         return 0
     from gaustudio_torch.utils import kernels
 

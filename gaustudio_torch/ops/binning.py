@@ -4,20 +4,29 @@ One module for the work of gaustudio_tpu/ops/binning.py and
 binning_fast.py. It holds two CUDA kernels (csrc/binning.cu), each beside
 its plain PyTorch version:
 
-* K1 :func:`duplicate_with_keys` (replaces binning_fast._fused_expand_kernel):
-  one entry per (Gaussian, tile) of the Gaussian's tight rect that survives
-  the exact max-alpha tile cull, keyed ``tile << 32 | float_bits(depth)``.
-  With ``cull=False`` (2DGS surfels, as ``fused_expand(cull=False)`` and the
-  golden ``binning.bin_gaussians``) every tile of the rect is kept.
+* K1 :func:`duplicate_with_keys` (replaces binning_fast.py:230
+  ``_fused_expand_kernel``): one entry per (Gaussian, tile) of the
+  Gaussian's tight rect that survives the exact max-alpha tile cull, keyed
+  ``tile << 32 | float_bits(depth)``, Gaussian-major and row-major within a
+  rect. With ``cull=False`` (2DGS surfels, as ``fused_expand(cull=False)``
+  and the golden ``binning.bin_gaussians``) every tile of the rect is kept.
+  On the card K1 is bound by the cull's arithmetic per candidate and by the
+  12 bytes written per entry, and rect sizes are skewed (a few tiles at the
+  median, hundreds at the tail). So a warp walks the flattened candidates
+  of its 32 Gaussians 32 at a time, as the TPU kernel walks its slots, and
+  compacts the kept ones with a ballot: ceil(sum / 32) iterations a warp
+  instead of its largest rect, and stores of neighbouring lanes on
+  neighbouring addresses. The count pass gives each warp's output offset
+  and the entry count (its last block to finish scans the block totals),
+  read back once to size the outputs (the single host wait of a forward
+  pass, as in the CUDA reference); the write pass repeats the walk.
 * K2 :func:`identify_tile_ranges` (replaces binning_fast._ranges_kernel):
   the [start, end) run of every tile in the sorted entries.
 
 The sort between them is ``torch.sort(stable=True)``, as it was XLA's sort
 in JAX: ties keep Gaussian order, like the golden binning.bin_gaussians.
-Buffers are sized from ``num_rendered``, read back after the prefix sum of
-the per-Gaussian counts, as the CUDA reference does; there is no static
-capacity. A wrapper runs its plain version only for CPU tensors; for CUDA
-tensors it launches its kernel or raises.
+There is no static capacity. A wrapper runs its plain version only for CPU
+tensors; for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -99,37 +108,57 @@ def duplicate_with_keys_plain(pre: Preprocessed, grid_x: int, cull: bool = True)
     return keys[keep], g[keep].to(torch.int32)
 
 
+def _kernel_input(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` itself where it already is a contiguous ``dtype`` tensor."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
 def duplicate_with_keys(pre: Preprocessed, grid_x: int, cull: bool = True):
     """K1: (keys [L] int64, gids [L] int32), the kernel for CUDA tensors."""
     if not pre.means2d.is_cuda:
         return duplicate_with_keys_plain(pre, grid_x, cull)
-    args = (pre.means2d.float().contiguous(), pre.conic.float().contiguous(),
-            pre.opacities.float().contiguous(), pre.rect_min.int().contiguous(),
-            pre.rect_max.int().contiguous())
-    tiles = pre.tiles_touched.int().contiguous()
-    depths = pre.depths.float().contiguous()
-    kernels.require_cuda("duplicate_with_keys", *args, tiles, depths)
-    n = depths.shape[0]
-    for t, width in zip(args + (tiles,), (2, 3, 1, 2, 2, 1)):
+    f32, i32 = torch.float32, torch.int32
+    rect_min, rect_max = _kernel_input(pre.rect_min, i32), _kernel_input(pre.rect_max, i32)
+    tiles = _kernel_input(pre.tiles_touched, i32)
+    # the cull alone reads the splat
+    splat = (_kernel_input(pre.means2d, f32), _kernel_input(pre.conic, f32),
+             _kernel_input(pre.opacities, f32)) if cull else ()
+    kernels.require_cuda("duplicate_with_keys", rect_min, rect_max, tiles, *splat)
+    # depth is read by stride: preprocess hands over a column of a wider tensor
+    depths = pre.depths if pre.depths.dtype == f32 and pre.depths.dim() == 1 else \
+        pre.depths.reshape(-1).to(f32)
+    n, device = depths.shape[0], rect_min.device
+    if depths.device != device:
+        raise ValueError(f"duplicate_with_keys: depths on {depths.device}, rects on {device}")
+    for t, width in zip((rect_min, rect_max, tiles) + splat, (2, 2, 1, 2, 3, 1)):
         if t.numel() != n * width:
             raise ValueError(f"duplicate_with_keys: expected {n} x {width} values, "
                              f"got shape {tuple(t.shape)}")
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int64, device=device),
+                torch.empty(0, dtype=torch.int32, device=device))
+    # the inputs stay bound (and so alive) until both launches are queued
+    ptrs = ([t.data_ptr() for t in splat] or [0, 0, 0]) + [
+        t.data_ptr() for t in (rect_min, rect_max, tiles)]
     lib = kernels.load()
-    ptrs = [t.data_ptr() for t in args]
-    counts = torch.empty(n, dtype=torch.int32, device=depths.device)
-    kernels.check(lib.gs_count_tiles(n, *ptrs, tiles.data_ptr(), int(cull), counts.data_ptr(),
-                                     kernels.stream()), "gs_count_tiles")
-    offsets = torch.cumsum(counts, 0)  # int64, inclusive
-    num_rendered = int(offsets[-1]) if n else 0
+    num_warps, num_blocks = (n + 31) // 32, (n + 255) // 256
+    # the warps' counts, the blocks' offsets, the entry count and, with the
+    # cull, 32 keep masks of 4 bytes a warp (csrc/binning.cu count_entries_kernel)
+    scratch = torch.empty(num_warps + num_blocks + 1 + (16 * num_warps if cull else 0),
+                          dtype=torch.int64, device=device)
+    kernels.check(lib.gs_count_entries(n, *ptrs, int(cull), scratch.data_ptr(),
+                                       kernels.stream()), "gs_count_entries")
+    duplicate_with_keys.launches += 1
+    num_rendered = int(scratch[num_warps + num_blocks])
     if num_rendered >= 2**31:  # the range and render kernels index entries with int
         raise ValueError(f"duplicate_with_keys: {num_rendered} entries exceed int32")
-    keys = torch.empty(num_rendered, dtype=torch.int64, device=depths.device)
-    gids = torch.empty(num_rendered, dtype=torch.int32, device=depths.device)
-    kernels.check(lib.gs_write_keys(n, grid_x, *ptrs, depths.data_ptr(), int(cull),
-                                    counts.data_ptr(),
-                                    offsets.data_ptr(), keys.data_ptr(), gids.data_ptr(),
-                                    kernels.stream()), "gs_write_keys")
-    duplicate_with_keys.launches += 1
+    keys = torch.empty(num_rendered, dtype=torch.int64, device=device)
+    gids = torch.empty(num_rendered, dtype=torch.int32, device=device)
+    if num_rendered:
+        kernels.check(lib.gs_write_entries(n, grid_x, *ptrs, depths.data_ptr(), depths.stride(0),
+                                           int(cull), scratch.data_ptr(), keys.data_ptr(),
+                                           gids.data_ptr(), kernels.stream()),
+                      "gs_write_entries")
     return keys, gids
 
 

@@ -35,8 +35,8 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gs_count_tiles": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "gs_write_keys": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "gs_count_entries": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "gs_write_entries": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "gs_identify_tile_ranges": [_I, _I, _P, _P, _P],
     "gs_render_tiles": [_I, _I, _I, _I] + [_P] * 15,
     "gs_render_tiles_backward": [_I, _I, _I, _I] + [_P] * 16,

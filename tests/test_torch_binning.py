@@ -17,6 +17,8 @@ from gaustudio_tpu.ops import binning as j_binning
 from gaustudio_tpu.ops import binning_fast, gaussian as j_gaussian
 from tests.test_rasterize import _make_scene
 
+import chip_smoke
+
 
 def jax_preprocess(scene):
     st = scene["settings"]
@@ -60,16 +62,36 @@ def test_tile_ranges_match_searchsorted(num_tiles):
     assert (got[empty] == 0).all()
 
 
-def test_tile_lists_equal_jax_fast_binning(binned):
-    pre, gx, gy, tb = binned
+def fast_tile_lists(pre, gx, gy):
+    """Per-tile Gaussian lists and entry count of the JAX fast binning."""
     with pltpu.force_tpu_interpret_mode():
         fast = jax.jit(lambda p: binning_fast.bin_gaussians_fast(p, gx, gy, 4096))(pre)
     flat = np.asarray(fast.flat_entries).T
     start = np.asarray(fast.tile_start)
     count = np.asarray(fast.tile_count)
-    want = [list(flat[s:s + c, 10].astype(np.int32)) for s, c in zip(start, count)]
+    return [list(flat[s:s + c, 10].astype(np.int32)) for s, c in zip(start, count)], int(count.sum())
+
+
+def test_tile_lists_equal_jax_fast_binning(binned):
+    pre, gx, gy, tb = binned
+    want, total = fast_tile_lists(pre, gx, gy)
     assert tile_lists(tb.point_list, tb.ranges) == want
-    assert tb.num_rendered == int(count.sum())
+    assert tb.num_rendered == total
+
+
+@pytest.mark.parametrize("case", ["full_screen", "n33", "zero_tile_rows", "all_culled"])
+def test_k1_case_tile_lists_equal_jax_fast_binning(case):
+    """The plain K1 + sort + K2 against the JAX fast binning on the cases that
+    stress the kernel's warp walk (chip_smoke.k1_case_arrays), at 64x64: a
+    rect over the whole view among small ones, a ragged last warp, rows with
+    no tiles (their rects garbage), and a view the cull empties."""
+    arrays = chip_smoke.k1_case_arrays(case, 64, 64)
+    pre = j_gaussian.Preprocessed(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tb = t_binning.bin_gaussians(to_torch(pre), 4, 4)
+    want, total = fast_tile_lists(pre, 4, 4)
+    assert tile_lists(tb.point_list, tb.ranges) == want
+    assert tb.num_rendered == total
+    assert (total == 0) == (case == "all_culled")
 
 
 def test_tile_lists_are_subsequences_of_jax_golden(binned):

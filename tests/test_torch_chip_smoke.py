@@ -63,3 +63,14 @@ def test_k2_case_ranges(case):
         want[tile][1] = i + 1
     got = binning.identify_tile_ranges(keys, num_tiles)
     assert got.dtype == torch.int32 and got.tolist() == want
+
+
+@pytest.mark.parametrize("case", chip_smoke.K1_CASES)
+def test_k1_case_stresses_what_it_is_for(case):
+    """K1's cases at the card's 1920x1080, through the plain version."""
+    pre, W, H = chip_smoke.k1_case(case, CPU)
+    gx = (W + 15) // 16
+    _, gids = binning.duplicate_with_keys(pre, gx)
+    keys, _ = binning.duplicate_with_keys(pre, gx, cull=False)
+    assert keys.shape[0] == int(pre.tiles_touched.sum())
+    chip_smoke.check_k1_case(case, pre, W, H, gids, keys.shape[0])

@@ -2,10 +2,12 @@
 without the cull, K5 surfel forward, K6 surfel backward) against their plain
 PyTorch versions, on the card. Skipped where torch sees no CUDA device.
 
-The hard cases of K2-K6 (chip_smoke.py hard_case and k2_cases: a Gaussian
-or surfel in every tile, warps that end far apart, more than 256 entries a
-pixel, a ragged image whose bottom tiles hold an odd number of rows; empty
-and single-entry tiles) run here too.
+The hard cases of K1-K6 (chip_smoke.py hard_case, k1_case and k2_cases: a
+Gaussian or surfel in every tile, warps that end far apart, more than 256
+entries a pixel, a ragged image whose bottom tiles hold an odd number of
+rows; a full-screen primitive among thousands of small ones, 1, 31 and 33
+primitives, rows with no tiles inside a warp, a view the cull empties;
+empty and single-entry tiles) run here too.
 
 This file imports no jax. tests/conftest.py does, and the machine with the
 card has no jax, so there pytest runs it without the conftest
@@ -214,6 +216,19 @@ def test_render_surfel_tiles_backward_hard_case_matches_plain(case, cuda):
     pre, w, h = chip_smoke.hard_case(case, cuda, surfel=True)
     _, _, args = chip_smoke.compare_surfel_kernels(pre, w, h, seed=5)
     chip_smoke.check_hard_case(case, args[0], args[1], args[9], w, h)
+
+
+@pytest.mark.parametrize("cull", [True, False], ids=["cull", "no_cull"])
+@pytest.mark.parametrize("case", chip_smoke.K1_CASES)
+def test_duplicate_with_keys_case_matches_plain(case, cull, cuda):
+    """K1 on a case of chip_smoke.k1_case at 1920x1080: keys and indices equal
+    to the plain version's element for element (compare_k1 raises)."""
+    pre, w, h = chip_smoke.k1_case(case, cuda)
+    _, keys, gids = chip_smoke.compare_k1(pre, (w + 15) // 16, cull, case)
+    torch.cuda.synchronize()
+    if cull:
+        no_cull = binning.duplicate_with_keys(pre, (w + 15) // 16, cull=False)[0].shape[0]
+        chip_smoke.check_k1_case(case, pre, w, h, gids, no_cull)
 
 
 @pytest.mark.parametrize("case", list(chip_smoke.k2_cases(torch.device("cpu"))))
