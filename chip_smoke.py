@@ -55,12 +55,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 9b. 2DGS training with the kernels against the plain versions: 12 steps,
    one camera sequence, final PSNR within 0.1 dB;
 10. 2DGS training at 512x512 / 60k surfels: 30 steps and one densify, with
-   ms per iteration, the device's busy share of a step and a breakdown.
+   ms per iteration, the device's busy share of a step and a breakdown;
+11. mesh extraction: gs-extract-mesh on the fixture with GOLDEN.json's
+   extract_kw (mesh F1 and chamfer against gt_mesh.ply at the thresholds of
+   tests/test_golden_e2e.py); bench_all.py's extraction workload (60k
+   Gaussians on the unit sphere, 12 orbit views at 512 px) through
+   extract_mesh, cold and warm (extract_mesh_s, extract_mesh_warm_s), held
+   on every third view against the same extraction through the plain
+   compositor (F1 at least 0.999 at half a voxel), and as surfels through
+   --config 2dgs; and
+   gs-extract-mesh with its defaults on 300k Gaussians of the sphere from 36
+   orbit cameras at 1920x1080: the grid's dims, the wall, the peak device
+   memory, the device's busy share, the ms a view of the render, the
+   integrate and the file writes, and the seconds of marching tetrahedra.
+   K1, K2 and K3 (K5 for 2dgs) must launch there, K4 and K6 must not.
 
-Each path (phases 4, 5, 6, 8 and 9) is driven with every launch count set to
-0 just before it and read just after; a kernel of the path that was not
-launched fails the run. The report's ``launches`` sums the counts of the
-render and training paths (phases 5, 6, 8 and 9). The last two lines are
+Each path (phases 4, 5, 6, 8, 9 and 11) is driven with every launch count
+set to 0 just before it and read just after; a kernel of the path that was
+not launched fails the run. The report's ``launches`` sums the counts of the
+render, training and mesh paths (phases 5, 6, 8, 9 and 11). The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -1431,6 +1444,285 @@ def main_path_surfel(out_dir: str, ply: str, cams_path: str, device, card: str) 
     return counts
 
 
+# --- phase 11: mesh extraction (gs-extract-mesh) ---------------------------
+
+# bench_all.py bench_extract_mesh: 60k Gaussians on the unit sphere (seed 4,
+# SH 0), 12 orbit views at 512 px (radius 3, FoV 60), stride 1, no downsample,
+# voxel 0.02, min weight 2. The full width: 300k Gaussians of the same
+# generator, 36 orbit cameras at 1920x1080 through the CLI's defaults.
+MESH_N, MESH_SEED, MESH_VIEWS, MESH_SIZE, MESH_RADIUS = 60_000, 4, 12, 512, 3.0
+MESH_KW = {"stride": 1, "downsample": 1, "voxel_size": 0.02, "min_weight": 2.0}
+MESH_FULL_N, MESH_FULL_CAMS = 300_000, 36
+# surface samples of the F1 between two meshes at half a voxel: with 20000
+# (mesh_f1_score's default) two equal meshes of the unit sphere would score
+# well below 0.999, the samples lying ~0.025 apart
+MESH_F1_SAMPLES = 1_000_000
+# what a mesh-extraction path may launch: the forward kernels, never a backward
+MESH_NEVER = ("render_tiles_backward", "render_surfel_tiles_backward")
+
+
+def sphere_points(n: int = MESH_N, seed: int = MESH_SEED) -> tuple:
+    """bench_all.py bench_extract_mesh's scene: n points on the unit sphere
+    and their uniform colours, the same seeded draws in the same order."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    return pts, rng.uniform(size=(n, 3)).astype(np.float32)
+
+
+def sphere_model(n: int, device, config=None):
+    """The model bench_all.py makes of sphere_points: create_from_attribute
+    (scales from the 3 nearest neighbours, opacity 0.1), SH degree 0."""
+    from gaustudio_torch import models
+
+    pcd = models.make(config or {"name": "vanilla_pcd"}, device=device)
+    xyz, rgb = sphere_points(n)
+    pcd.create_from_attribute(xyz=xyz, rgb=rgb)
+    pcd.active_sh_degree = 0
+    return pcd
+
+
+def orbit_cameras(num_cam: int, size: int, device) -> list:
+    from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
+
+    return get_path_from_orbit(np.zeros(3), MESH_RADIUS, num_cam=num_cam, image_size=size,
+                               fov_deg=60, device=device)
+
+
+def write_orbit_cameras(path: str, num_cam: int, W: int, H: int) -> str:
+    """A cameras.json of num_cam orbit views at WxH: FoVx 60 degrees and
+    the same focal length along y."""
+    from gaustudio_torch.datasets.utils import camera_to_JSON
+
+    entries = []
+    for i, cam in enumerate(orbit_cameras(num_cam, W, "cpu")):
+        cj = camera_to_JSON(i, cam)
+        cj.update(height=H, fy=cj["fx"], cy=H / 2)
+        entries.append(cj)
+    with open(path, "w") as f:
+        json.dump(entries, f)
+    return path
+
+
+def mesh_counts(tag: str, counts: dict, forward: tuple) -> None:
+    say("mesh", f"{tag}: launches {json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in forward), f"{tag}: a kernel was not launched: {counts}")
+    check(all(counts[k] == 0 for k in MESH_NEVER), f"{tag}: a backward kernel ran: {counts}")
+
+
+def mesh_fixture(out_dir: str) -> dict:
+    """gs-extract-mesh on mini_scene with GOLDEN.json's extract_kw, scored
+    against gt_mesh.ply at the thresholds of tests/test_golden_e2e.py."""
+    from gaustudio_torch.scripts import extract_mesh as gs_extract_mesh
+    from gaustudio_torch.utils.mesh import load_mesh, mesh_f1_score
+
+    with open(os.path.join(FIXTURE, "GOLDEN.json")) as f:
+        golden = json.load(f)
+    kw = golden["extract_kw"]
+    reset_counts()
+    path = gs_extract_mesh.main([
+        "-m", os.path.join(FIXTURE, "gaussians.ply"), "-s", os.path.join(FIXTURE, "cameras.json"),
+        "-o", os.path.join(out_dir, "mesh_fixture"), "--sh", "0", "--device", "cuda",
+        "--stride", str(kw["stride"]), "--resolution", str(kw["downsample"]),
+        "--voxel_size", str(kw["voxel_size"]), "--sdf_trunc", str(kw["sdf_trunc"]),
+        "--min_weight", str(kw["min_weight"])])
+    counts = read_counts()
+    mesh_counts("mini_scene", counts, FORWARD)
+    verts, faces = load_mesh(path)
+    gt = load_mesh(os.path.join(FIXTURE, "gt_mesh.ply"))
+    f1 = mesh_f1_score(verts, faces, *gt, golden["f1_tau"])
+    floor, ceiling = golden["mesh_f1"] - 0.03, golden["mesh_chamfer"] * 1.25 + 1e-4
+    say("mesh", f"mini_scene: {len(verts)} vertices, {len(faces)} faces; F1 {f1['f1']:.4f} at "
+        f"tau {golden['f1_tau']} (golden {golden['mesh_f1']}, floor {floor:.4f}), chamfer "
+        f"{f1['chamfer']:.5f} (golden {golden['mesh_chamfer']}, ceiling {ceiling:.5f})")
+    check(f1["f1"] >= floor, f"mini_scene mesh F1 {f1['f1']:.4f}")
+    check(f1["chamfer"] <= ceiling, f"mini_scene mesh chamfer {f1['chamfer']:.5f}")
+    return counts
+
+
+def mesh_bench(out_dir: str, device, card: str) -> list:
+    """bench_all.py's extraction workload through extract_mesh: cold (the
+    process's first extraction) and warm, the kernels against the plain
+    compositor on every third view, and the scene as surfels through
+    gs-extract-mesh --config 2dgs."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.pipelines.mesh_extraction import extract_mesh
+    from gaustudio_torch.scripts import extract_mesh as gs_extract_mesh
+    from gaustudio_torch.utils.mesh import load_mesh, mesh_f1_score
+
+    pcd = sphere_model(MESH_N, device)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    reset_counts()
+    timings, meshes = [], []
+    for _ in range(2):
+        cams = orbit_cameras(MESH_VIEWS, MESH_SIZE, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meshes.append(extract_mesh(pcd, renderer, cams, device=device, **MESH_KW))
+        torch.cuda.synchronize()
+        timings.append(time.perf_counter() - t0)
+    counts = read_counts()
+    mesh_counts(f"extract_mesh {MESH_N} Gaussians", counts, FORWARD)
+    verts, faces = meshes[1]
+    check(len(verts) > 1000 and len(faces) > 1000, f"{len(faces)} faces")
+    check(np.array_equal(meshes[0][1], faces), "the warm extraction's faces differ from the cold's")
+    radius = float(np.median(np.linalg.norm(verts, axis=1)))
+    say("mesh", f"extract_mesh_s {timings[0]:.4f}, extract_mesh_warm_s {timings[1]:.4f} "
+        f"({MESH_VIEWS} views at {MESH_SIZE}x{MESH_SIZE}, {MESH_N} Gaussians, voxel "
+        f"{MESH_KW['voxel_size']}; host clock fenced by synchronize): {len(verts)} vertices, "
+        f"{len(faces)} faces, median radius {radius:.4f} | {card}")
+    check(abs(radius - 1.0) < 0.05, f"the sphere's mesh has median radius {radius:.4f}")
+
+    # against the plain compositor on every third view (its per-rank loop
+    # takes seconds a view on the host)
+    plain = renderers.make({"name": "vanilla_renderer"}, device=device)
+    kernel_settings = plain.make_settings
+    plain.make_settings = lambda *a: kernel_settings(*a)._replace(backend="plain")
+    kw = dict(MESH_KW, stride=3)
+    kernel_mesh = extract_mesh(pcd, renderer, orbit_cameras(MESH_VIEWS, MESH_SIZE, device),
+                               device=device, **kw)
+    t0 = time.perf_counter()
+    plain_mesh = extract_mesh(pcd, plain, orbit_cameras(MESH_VIEWS, MESH_SIZE, device),
+                              device=device, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    f1 = mesh_f1_score(*kernel_mesh, *plain_mesh, tau=0.5 * MESH_KW["voxel_size"],
+                       n_samples=MESH_F1_SAMPLES)
+    say("mesh", f"kernels against the plain compositor, {MESH_VIEWS // 3} views: "
+        f"{len(kernel_mesh[1])} / {len(plain_mesh[1])} faces, F1 {f1['f1']:.6f} at half a voxel "
+        f"({MESH_F1_SAMPLES} samples a mesh; floor 0.999), chamfer {f1['chamfer']:.3e}; "
+        f"plain {plain_s:.2f} s | {card}")
+    check(f1["f1"] >= 0.999, f"kernel and plain meshes differ: F1 {f1['f1']:.6f}")
+
+    surfels = sphere_model(MESH_N, "cpu", SURFEL_CONFIG)  # its first two scale columns
+    ply = os.path.join(out_dir, "mesh_surfel_scene.ply")
+    surfels.export(ply)
+    cams_path = write_orbit_cameras(os.path.join(out_dir, "mesh_surfel_cameras.json"),
+                                    MESH_VIEWS, MESH_SIZE, MESH_SIZE)
+    reset_counts()
+    t0 = time.perf_counter()
+    path = gs_extract_mesh.main([
+        "-m", ply, "-s", cams_path, "-o", os.path.join(out_dir, "mesh_surfel"), "--config", "2dgs",
+        "--device", "cuda", "--stride", "1", "--resolution", "1",
+        "--voxel_size", str(MESH_KW["voxel_size"]), "--min_weight", str(MESH_KW["min_weight"])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    surfel_counts = read_counts()
+    mesh_counts("gs-extract-mesh --config 2dgs", surfel_counts, SURFEL_FORWARD)
+    sv, sf = load_mesh(path)
+    say("mesh", f"gs-extract-mesh --config 2dgs, {MESH_N} surfels: {wall:.2f} s wall, "
+        f"{len(sv)} vertices, {len(sf)} faces | {card}")
+    check(len(sf) > 1000, f"the surfel mesh has {len(sf)} faces")
+    return [counts, surfel_counts]
+
+
+def mesh_full(out_dir: str, device, card: str) -> dict:
+    """gs-extract-mesh with its defaults on 300k Gaussians of the sphere and
+    36 orbit cameras at 1920x1080 (12 views at 960x540): the wall, the peak
+    device memory, the device's busy share, and a staged run of the same
+    pipeline with per-stage times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaustudio_torch import renderers
+    from gaustudio_torch.ops import mcubes, tsdf
+    from gaustudio_torch.pipelines import mesh_extraction as ME
+    from gaustudio_torch.scripts import extract_mesh as gs_extract_mesh
+    from gaustudio_torch.utils.mesh import load_mesh
+
+    ply = os.path.join(out_dir, "mesh_full_scene.ply")
+    sphere_model(MESH_FULL_N, "cpu").export(ply)
+    cams_path = write_orbit_cameras(os.path.join(out_dir, "mesh_full_cameras.json"),
+                                    MESH_FULL_CAMS, FULL_W, FULL_H)
+    argv = ["-m", ply, "-s", cams_path, "-o", os.path.join(out_dir, "mesh_full"),
+            "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    path = gs_extract_mesh.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    mesh_counts(f"gs-extract-mesh {MESH_FULL_N} Gaussians, {FULL_W}x{FULL_H}", counts, FORWARD)
+    verts, faces = load_mesh(path)
+    check(len(faces) > 1000, f"the full-width mesh has {len(faces)} faces")
+    check(np.isfinite(verts).all(), "non-finite vertices")
+    n_views = len(os.listdir(os.path.join(out_dir, "mesh_full", "masks")))
+    check(n_views == MESH_FULL_CAMS // 3, f"{n_views} views written")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gs_extract_mesh.main(argv)
+        torch.cuda.synchronize()
+    busy = sum(float(getattr(ev, "self_device_time_total", None)
+                     or getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
+    check(busy > 0, "torch.profiler recorded no device time in the extraction")
+
+    # the same pipeline, stage by stage, each fenced by synchronize
+    from gaustudio_torch import models
+    from gaustudio_torch.datasets.utils import JSON_to_camera
+
+    pcd = models.make({"name": "vanilla_pcd"}, device=device)
+    pcd.load(ply)
+    pcd.active_sh_degree = 0
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    with open(cams_path) as f:
+        cams = [JSON_to_camera(cj, device=device).downsample_scale(2) for cj in json.load(f)[::3]]
+    lo, hi = tsdf.integrate_points_bounds(pcd.get_attribute("xyz"))
+    vol = tsdf.volume_from_bounds(lo, hi, 0.01, 0.04, max_dim=384, device=device)
+    stage_dir = os.path.join(out_dir, "mesh_full_stages")
+    os.makedirs(os.path.join(stage_dir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(stage_dir, "masks"), exist_ok=True)
+    stages = {"render": [], "integrate": [], "files": []}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for cam in cams:
+        t0 = clock()
+        out = renderer.render(cam, pcd)
+        invalid = out["rendered_final_opacity"][0] < 0.5
+        depth = torch.where(invalid, 0.0, out["rendered_median_depth"][0])
+        t1 = clock()
+        tsdf.integrate(vol, depth, cam.intrinsics, cam.extrinsics)
+        t2 = clock()
+        ME._save_view_files(stage_dir, cam.image_name, cam, invalid.cpu().numpy(),
+                            out["render"].permute(1, 2, 0).cpu().numpy())
+        t3 = clock()
+        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[key].append(dt * 1e3)
+    X, Y, Z = vol.tsdf.shape
+    t0 = clock()
+    for z0 in range(0, Z - 1, 4):
+        mcubes._slab_triangles(vol.tsdf[:, :, z0:z0 + 5], vol.weight[:, :, z0:z0 + 5], z0, 0.0,
+                               5.0)
+    slabs_s = clock() - t0
+    t0 = clock()
+    sv, sf = mcubes.marching_tetrahedra(vol.tsdf, 0.0, weight=vol.weight, min_weight=5.0,
+                                        origin=vol.origin.cpu().numpy(),
+                                        voxel_size=float(vol.voxel_size), slab=4)
+    mt_s = clock() - t0
+    check(np.array_equal(sf, faces), "the staged run's faces differ from gs-extract-mesh's")
+
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    say("mesh", f"full width: grid {X}x{Y}x{Z} (voxel {float(vol.voxel_size):.4f}), "
+        f"{len(cams)} views at {cams[0].image_width}x{cams[0].image_height}, {MESH_FULL_N} "
+        f"Gaussians: {len(verts)} vertices, {len(faces)} faces | {card}")
+    say("mesh", f"full width: gs-extract-mesh {wall:.3f} s wall (load, render, fuse, mesh, "
+        f"files), peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated), device busy {busy:.3f} s of the profiled run, busy "
+        f"share {busy / wall:.4f} of the unprofiled wall (torch.profiler) | {card}")
+    say("mesh", "full width by stage (host clock fenced by synchronize, median of "
+        f"{len(cams)} views, ms a view): render {med['render']:.3f}, integrate "
+        f"{med['integrate']:.3f}, file writes {med['files']:.3f}; marching tetrahedra "
+        f"{mt_s:.3f} s, of which the device's slabs {slabs_s:.3f} s and the host's dedup and "
+        f"winding {mt_s - slabs_s:.3f} s | {card}")
+    return counts
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -1664,6 +1956,12 @@ def main(argv=None) -> int:
     # phase 10: 2DGS training at 512x512 / 60k surfels
     st_ply, st_cams = write_surfel_train_scene(args.out)
     train_at_scale(args.out, st_ply, st_cams, device, card, "2DGS 512/60k", surfel=True)
+
+    # phase 11: mesh extraction: gs-extract-mesh on the fixture, bench_all.py's
+    # workload (and as surfels), and at full width
+    path_counts.append(mesh_fixture(args.out))
+    path_counts.extend(mesh_bench(args.out, device, card))
+    path_counts.append(mesh_full(args.out, device, card))
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -9,7 +9,8 @@ tensors on ``device``: the current CUDA device unless the caller names one.
 Cameras are small; a caller may keep them on the CPU (``device="cpu"``), and
 the renderer and the trainer move what they read to their own device.
 
-Camera paths, depth2point and depth2normal belong to later slices.
+The orbit paths are in ``cameras/camera_paths.py``; the rest of the JAX
+package's camera-path tools belong to a later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gaustudio_torch.ops.gaussian import transform_dirs
 from gaustudio_torch.utils.misc import resolve_device
 
 
@@ -99,6 +101,9 @@ class Camera:
     image_name: Optional[str] = None
     image: Optional[torch.Tensor] = None  # [H, W, 3] float32 in [0, 1]
     mask: Optional[torch.Tensor] = None  # [H, W] alpha of an RGBA image
+    bg_image: Optional[torch.Tensor] = None  # [H, W, 3] background of a masked view
+    normal: Optional[torch.Tensor] = None  # [H, W, 3]
+    depth: Optional[torch.Tensor] = None  # [H, W] metric depth
     device: Optional[torch.device] = None  # None: the current CUDA device
     world_view_transform: torch.Tensor = None
     projection_matrix: torch.Tensor = None
@@ -146,12 +151,33 @@ class Camera:
         self.image_height, self.image_width = img.shape[:2]
 
     @property
+    def fx(self) -> torch.Tensor:
+        return self.intrinsics[0, 0]
+
+    @property
+    def fy(self) -> torch.Tensor:
+        return self.intrinsics[1, 1]
+
+    @property
     def tanfovx(self):
         return math.tan(self.FoVx * 0.5)
 
     @property
     def tanfovy(self):
         return math.tan(self.FoVy * 0.5)
+
+    @property
+    def extrinsics(self) -> torch.Tensor:
+        """The world -> view matrix in math convention (float32 [4, 4]): the
+        transpose of ``world_view_transform``."""
+        return self.world_view_transform.T
+
+    @extrinsics.setter
+    def extrinsics(self, extrinsics):
+        extrinsics = _host(extrinsics)
+        self.R = np.transpose(extrinsics[:3, :3])
+        self.T = extrinsics[:3, 3]
+        self._setup()
 
     @property
     def intrinsics(self) -> torch.Tensor:
@@ -167,16 +193,27 @@ class Camera:
         )
         return torch.from_numpy(K).to(self.device)
 
+    def update_intrinsics(self, intrinsics, image_width, image_height):
+        """Set the field of view from a pinhole K's focal lengths and the size."""
+        K = _host(intrinsics)
+        self.FoVx = 2.0 * np.arctan(image_width / (2.0 * K[0, 0]))
+        self.FoVy = 2.0 * np.arctan(image_height / (2.0 * K[1, 1]))
+        self.image_width = int(image_width)
+        self.image_height = int(image_height)
+        self._setup()
+
     def downsample_scale(self, scale):
         resolution = round(self.image_width / scale), round(self.image_height / scale)
         return self.downsample(resolution)
 
     def downsample(self, resolution):
         """Resize to ``(w, h)`` as the JAX package's ``resize_color`` does:
-        the image and the mask are quantised to uint8 (x 255 where their
-        maximum is at most 1, then truncated) and resampled with an
-        antialiased bicubic filter, PIL's default for ``resize``; the uint8
-        result is divided by 255. The resampling runs on the host."""
+        the image, background, mask and normal map are quantised to uint8
+        (x 255 where their maximum is at most 1, then truncated) and resampled
+        with an antialiased bicubic filter, PIL's default for ``resize``; the
+        uint8 result is divided by 255. The depth map is resampled by nearest
+        neighbour at pixel centres, as PIL's ``NEAREST`` does. The resampling
+        runs on the host."""
         w, h = resolution
 
         def resize_color(x: torch.Tensor) -> torch.Tensor:
@@ -191,8 +228,110 @@ class Camera:
 
         if self.image is not None:
             self.image = resize_color(self.image)[..., :3]
+        if self.bg_image is not None:
+            self.bg_image = resize_color(self.bg_image)[..., :3]
         if self.mask is not None:
             self.mask = resize_color(self.mask)
+        if self.normal is not None:
+            self.normal = resize_color(self.normal)
+        if self.depth is not None:
+            d = self.depth.detach().cpu().float()[None, None]
+            d = torch.nn.functional.interpolate(d, size=(h, w), mode="nearest-exact")
+            self.depth = d[0, 0].to(self.device)
         self.image_width, self.image_height = w, h
         self._setup()
         return self
+
+    # -- geometry -------------------------------------------------------------
+    def insideView(self, world_xyz, mask=None) -> torch.Tensor:
+        """[N] bool: the points in front of the camera, inside its frustum, on
+        a pixel where ``mask`` (default: all ones) exceeds 0.5."""
+        world_xyz = torch.as_tensor(world_xyz, dtype=torch.float32, device=self.device)
+        if mask is None:
+            mask = torch.ones((self.image_height, self.image_width), device=self.device)
+        mask = torch.as_tensor(mask, device=self.device)
+        if mask.ndim == 3:
+            mask = mask[..., 0]
+        P = self.full_proj_transform
+        clip = transform_dirs(world_xyz, P[:3]) + P[3]
+        ndc = clip[:, :3] / clip[:, 3:4]
+        px = (ndc[:, 0] + 1) * 0.5 * self.image_width
+        py = (1 + ndc[:, 1]) * 0.5 * self.image_height
+        inside = (ndc[:, 0] >= -1) & (ndc[:, 0] <= 1) & (ndc[:, 1] >= -1) & (ndc[:, 1] <= 1)
+        valid = (clip[:, 2] > 0) & inside
+        ix = torch.clamp(px.to(torch.int32), 0, self.image_width - 1).long()
+        iy = torch.clamp(py.to(torch.int32), 0, self.image_height - 1).long()
+        return valid & (mask[iy, ix] > 0.5)
+
+    def depth2point(self, depth=None, coordinate="camera") -> torch.Tensor:
+        """[H, W, 3] points of a depth map, in ``ndc``, ``camera`` or ``world``
+        coordinates. The JAX package's convention is kept: pixel (i, j) maps to
+        (j / (W - 1), i / (H - 1)), scaled back by (W - 1, H - 1) and the
+        depth, through the inverse intrinsics."""
+        depth = self._map(depth, self.depth, "Depth")
+        h, w = depth.shape
+        vx = torch.arange(w, dtype=torch.float32, device=depth.device) / (w - 1)
+        vy = torch.arange(h, dtype=torch.float32, device=depth.device) / (h - 1)
+        gy, gx = torch.meshgrid(vy, vx, indexing="ij")
+        ndc_xyz = torch.stack([gx, gy, depth], dim=-1)
+        if coordinate == "ndc":
+            return ndc_xyz
+        inv_scale = torch.tensor([w - 1, h - 1], dtype=torch.float32, device=depth.device)
+        cam_z = ndc_xyz[..., 2:3]
+        cam_xyz = torch.cat([ndc_xyz[..., :2] * inv_scale * cam_z, cam_z], dim=-1)
+        K = self.intrinsics.to(depth.device)
+        cam_xyz = transform_dirs(cam_xyz, torch.linalg.inv(K.T))
+        if coordinate == "camera":
+            return cam_xyz
+        if coordinate == "world":
+            c2w = torch.linalg.inv(self.extrinsics.to(depth.device))
+            return transform_dirs(cam_xyz, c2w[:3, :3].T) + c2w[:3, 3]
+        raise ValueError("Invalid coordinate system.")
+
+    def depth2normal(self, depth=None, k: int = 3, d_min: float = 1e-3,
+                     d_max: float = 100000.0, coordinate="camera") -> torch.Tensor:
+        """[H, W, 3] normals from the cross product of the depth points'
+        vertical and horizontal differences; -1 where any of the five points
+        has a depth outside (d_min, d_max)."""
+        depth = self._map(depth, self.depth, "Depth")
+        pts = self.depth2point(depth, coordinate="camera")
+        h, w, _ = pts.shape
+        kk = (k - 1) // 2
+        pad = torch.nn.functional.pad(pts, (0, 0, kk, kk, kk, kk))
+        valid_pad = (pad[..., 2] > d_min) & (pad[..., 2] < d_max)
+        vec_vert = pad[:h, kk:kk + w] - pad[2 * kk:2 * kk + h, kk:kk + w]
+        vec_hori = pad[kk:kk + h, :w] - pad[kk:kk + h, 2 * kk:2 * kk + w]
+        valid = (valid_pad[kk:kk + h, kk:kk + w] & valid_pad[:h, kk:kk + w]
+                 & valid_pad[2 * kk:2 * kk + h, kk:kk + w] & valid_pad[kk:kk + h, :w]
+                 & valid_pad[kk:kk + h, 2 * kk:2 * kk + w])
+        cross = -torch.linalg.cross(vec_vert, vec_hori, dim=-1)
+        normal = cross / torch.clamp_min(torch.linalg.norm(cross, dim=-1, keepdim=True), 1e-12)
+        if coordinate == "world":
+            normal = self.normal2worldnormal(normal)
+        return torch.where(valid[..., None], normal, -1.0)
+
+    def normal2worldnormal(self, normal=None) -> torch.Tensor:
+        """View-space normals [..., 3] -> world space."""
+        normal = self._map(normal, self.normal, "Normal")
+        Rwc_inv = torch.linalg.inv(self.extrinsics.to(normal.device)[:3, :3])
+        return transform_dirs(normal, Rwc_inv.T)
+
+    def worldnormal2normal(self, normal) -> torch.Tensor:
+        """World-space normals [..., 3] -> view space."""
+        if normal is None:
+            raise ValueError("Normal is not available.")
+        normal = torch.as_tensor(normal, dtype=torch.float32, device=self.device)
+        return transform_dirs(normal, self.extrinsics.to(normal.device)[:3, :3].T)
+
+    def _map(self, given, own, what: str) -> torch.Tensor:
+        x = own if given is None else given
+        if x is None:
+            raise ValueError(f"{what} is not available.")
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+
+def _host(m) -> np.ndarray:
+    """A matrix given as a tensor or an array -> numpy on the host."""
+    if isinstance(m, torch.Tensor):
+        return m.detach().cpu().numpy()
+    return np.asarray(m)

@@ -1,1 +1,2 @@
-"""Training pipelines (port of gaustudio_tpu/pipelines; the vanilla trainer)."""
+"""Pipelines (port of gaustudio_tpu/pipelines): the vanilla and 2DGS trainers and mesh
+extraction."""

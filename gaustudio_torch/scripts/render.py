@@ -1,9 +1,10 @@
-"""gs-render: render a trained model from the cameras of a cameras.json.
+"""gs-render: render a trained model from the cameras of a cameras.json or a
+COLMAP scene.
 
 Port of gaustudio_tpu/scripts/render.py. Run as
-``python -m gaustudio_torch.scripts.render -m <model> [-s cameras.json]
-[--config vanilla|2dgs]``; ``--config 2dgs`` renders 2DGS surfels through
-the SurfelRenderer.
+``python -m gaustudio_torch.scripts.render -m <model> [-s <cameras.json |
+COLMAP dir>] [--config vanilla|2dgs]``; ``--config 2dgs`` renders 2DGS
+surfels through the SurfelRenderer.
 Renders on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is
 asked for. Writes one PNG per camera to ``<output>/images``.
 """
@@ -49,7 +50,7 @@ def main(argv=None):
             "--flythrough needs the camera-path tools (cameras/camera_paths.py), "
             "which the port adds in a later slice")
 
-    from gaustudio_torch import models, renderers
+    from gaustudio_torch import datasets, models, renderers
     from gaustudio_torch.config import builtin_config_path, load_config
     from gaustudio_torch.datasets.utils import JSON_to_camera
     from gaustudio_torch.utils.image import save_image
@@ -84,12 +85,11 @@ def main(argv=None):
         args.source_path = os.path.join(
             model_path if os.path.isdir(model_path) else os.path.dirname(model_path),
             "cameras.json")
-    if not args.source_path.endswith(".json"):
-        raise NotImplementedError(
-            f"-s {args.source_path}: only a cameras.json is read; the COLMAP dataset "
-            "(datasets/colmap.py) comes to the port in a later slice")
-    with open(args.source_path) as f:
-        cameras = [JSON_to_camera(cj, device=device) for cj in json.load(f)]
+    if args.source_path.endswith(".json"):
+        with open(args.source_path) as f:
+            cameras = [JSON_to_camera(cj, device=device) for cj in json.load(f)]
+    else:
+        cameras = datasets.make({"name": "colmap", "source_path": args.source_path}).all_cameras
 
     render_path = os.path.join(work_dir, "images")
     os.makedirs(render_path, exist_ok=True)

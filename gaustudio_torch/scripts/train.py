@@ -1,16 +1,17 @@
 """gs-train: 3DGS and 2DGS training (port of gaustudio_tpu/scripts/train.py).
 
-    python -m gaustudio_torch.scripts.train -s <scene> -o <out> --dataset vanilla|nerf \
-        [--config vanilla|2dgs]
+    python -m gaustudio_torch.scripts.train -s <scene> -o <out> \
+        [--dataset colmap|vanilla|nerf] [--config vanilla|2dgs]
 
 Trains on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
 for. Starts from ``<scene>/sparse/0/points3D.ply`` when it exists, else from
-``--init_points`` random points in the camera extent. Writes the Inria
+the COLMAP ``points3D.bin`` beside it, else from ``--init_points`` random
+points in the camera extent. Writes the Inria
 layout that gs-render reads: ``point_cloud/iteration_N/point_cloud.ply``
 and ``cameras.json``. A config whose renderer is ``surfel_renderer``
 (``--config 2dgs``) trains 2DGS surfels with the SurfelTrainer. Multi-device
-training, scaffold and the COLMAP dataset belong to later slices of the port
-and raise NotImplementedError.
+training and scaffold belong to later slices of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,10 +26,6 @@ from gaustudio_torch.scripts.render import _device
 
 
 def _refuse_deferred(args, config) -> None:
-    if args.dataset == "colmap":
-        raise NotImplementedError(
-            "--dataset colmap: the COLMAP reader (datasets/colmap.py) is deferred in the "
-            "port (ROADMAP, 'Deferred from slice 1'); use --dataset vanilla or nerf")
     if args.gs_shards is not None:
         raise NotImplementedError(
             "--gs_shards: multi-device training comes to the port with slice 8")
@@ -50,7 +47,7 @@ def main(argv=None):
     parser.add_argument("--iterations", default=30000, type=int)
     parser.add_argument("--resolution", default=1, type=int)
     parser.add_argument("--dataset", default="colmap",
-                        help="dataset registry name (vanilla or nerf in the port)")
+                        help="dataset registry name (colmap, vanilla or nerf in the port)")
     parser.add_argument("--white_background", action="store_true")
     parser.add_argument("--save_every", default=7000, type=int)
     parser.add_argument("--seed", default=42, type=int)
@@ -84,14 +81,20 @@ def main(argv=None):
     dataset = datasets.make({"name": args.dataset, "source_path": args.source_path,
                              "resolution": args.resolution,
                              "white_background": args.white_background})
-    if args.resolution > 1:
+    if args.resolution > 1 and args.dataset != "colmap":  # colmap downsamples as it loads
         dataset.downsample_scale(args.resolution)
 
     pcd = models.make(config["model"]["pointcloud"], device=device)
     sparse_ply = os.path.join(args.source_path, "sparse", "0", "points3D.ply")
+    sparse_bin = os.path.join(args.source_path, "sparse", "0", "points3D.bin")
     if os.path.exists(sparse_ply):
         xyz, rgb, _ = fetch_ply(sparse_ply)
         pcd.create_from_attribute(xyz=xyz, rgb=rgb)
+    elif os.path.exists(sparse_bin):
+        from gaustudio_torch.datasets.utils import read_points3D_binary
+
+        xyz, rgb, _ = read_points3D_binary(sparse_bin)
+        pcd.create_from_attribute(xyz=xyz, rgb=rgb / 255.0)
     else:
         n0 = args.init_points
         print(f"No sparse points found; random init of {n0} points")

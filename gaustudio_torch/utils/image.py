@@ -9,7 +9,10 @@ import, it reads PNGs with :func:`read_png`, from the standard library
 (RGB), 3 (palette), 4 (grey + alpha) and 6 (RGBA), with all five scanline
 filters, converted as PIL's ``convert("RGB")`` converts them unless they are
 RGBA. Anything else raises, naming PIL. :func:`write_png` stands in for PIL
-in ``save_image`` (gaustudio_tpu/pipelines/mesh_extraction.py).
+in ``save_image`` (gaustudio_tpu/pipelines/mesh_extraction.py), grey images
+included. :func:`load_rgb8`, :func:`load_grey8` and :func:`load_samples`
+decode as the JAX package's COLMAP loader does through OpenCV, which the
+port does not use.
 """
 
 from __future__ import annotations
@@ -30,12 +33,15 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
 
 
 def write_png(path: str, pixels: np.ndarray) -> None:
-    """Write a uint8 [H, W, 3] or [H, W, 4] array (filter 0 on every row)."""
+    """Write a uint8 [H, W] (grey), [H, W, 3] or [H, W, 4] array (filter 0 on
+    every row)."""
     pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
-    if pixels.ndim != 3 or pixels.shape[2] not in (3, 4):
-        raise ValueError(f"expected [H, W, 3|4] pixels, got {pixels.shape}")
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    if pixels.ndim != 3 or pixels.shape[2] not in (1, 3, 4):
+        raise ValueError(f"expected [H, W] or [H, W, 3|4] pixels, got {pixels.shape}")
     h, w, c = pixels.shape
-    color_type = 2 if c == 3 else 6
+    color_type = {1: 0, 3: 2, 4: 6}[c]
     raw = np.zeros((h, 1 + w * c), np.uint8)
     raw[:, 1:] = pixels.reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
@@ -87,12 +93,8 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG -> uint8 [H, W, 4] for RGBA, else [H, W, 3]:
-    grey, grey + alpha and palette images become RGB as PIL's
-    ``convert("RGB")`` makes them (alpha and palette transparency dropped;
-    grey of 1, 2 or 4 bits scaled to 0..255). Samples are 8-bit, or 1, 2 or
-    4 bits for grey and palette images."""
+def _png_parts(path: str):
+    """A PNG's (IHDR fields, palette or None, decompressed scanlines)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -115,7 +117,16 @@ def read_png(path: str) -> np.ndarray:
             break
     if header is None:
         raise ValueError(f"{path}: missing IHDR")
-    w, h, depth, color_type, _, _, interlace = header
+    return header, palette, zlib.decompress(b"".join(idat))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a non-interlaced PNG -> uint8 [H, W, 4] for RGBA, else [H, W, 3]:
+    grey, grey + alpha and palette images become RGB as PIL's
+    ``convert("RGB")`` makes them (alpha and palette transparency dropped;
+    grey of 1, 2 or 4 bits scaled to 0..255). Samples are 8-bit, or 1, 2 or
+    4 bits for grey and palette images."""
+    (w, h, depth, color_type, _, _, interlace), palette, data = _png_parts(path)
     packed = color_type in (0, 3) and depth in (1, 2, 4)
     if not (depth == 8 or packed) or color_type not in _CHANNELS or interlace != 0:
         raise ValueError(
@@ -123,8 +134,7 @@ def read_png(path: str) -> np.ndarray:
             f"PNGs of 8-bit samples are read (bit depth {depth}, colour type {color_type}, "
             f"interlace {interlace}); install PIL for the rest")
     c = _CHANNELS[color_type]
-    raw = _unfilter(zlib.decompress(b"".join(idat)), h, (w * c * depth + 7) // 8,
-                    max(1, c * depth // 8))
+    raw = _unfilter(data, h, (w * c * depth + 7) // 8, max(1, c * depth // 8))
     if packed:  # one sample a pixel, depth bits each, rows padded to whole bytes
         bits = np.unpackbits(raw, axis=1)[:, :w * depth].reshape(h, w, depth)
         raw = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(np.uint8)
@@ -143,7 +153,7 @@ def read_png(path: str) -> np.ndarray:
 
 
 def save_image(path: str, array: np.ndarray) -> None:
-    """[H, W, 3] float image in [0, 1] -> 8-bit RGB PNG."""
+    """[H, W, 3] or [H, W] float image in [0, 1] -> 8-bit RGB or grey PNG."""
     arr = np.clip(np.asarray(array) * 255.0, 0, 255).astype(np.uint8)
     write_png(path, arr)
 
@@ -172,3 +182,38 @@ def load_image(path: str, bg_color=None) -> Tuple[np.ndarray, Optional[np.ndarra
     bg = np.zeros(3, np.float32) if bg_color is None else np.asarray(bg_color, np.float32)
     a = arr[..., 3:4]
     return arr[..., :3] * a + bg * (1.0 - a), a[..., 0]
+
+
+def load_rgb8(path: str) -> np.ndarray:
+    """uint8 [H, W, 3] of an image file, its alpha dropped (OpenCV's
+    ``IMREAD_COLOR`` in RGB order)."""
+    return _decode(path)[..., :3]
+
+
+def load_grey8(path: str) -> np.ndarray:
+    """uint8 [H, W]: a grey image's samples; other modes are converted to
+    luma by PIL (OpenCV's ``IMREAD_GRAYSCALE`` may round a luma 1 apart)."""
+    try:
+        from PIL import Image, ImageOps
+    except ImportError:
+        return read_png(path)[..., 0]
+    with Image.open(path) as img:
+        img = ImageOps.exif_transpose(img)
+        return np.asarray(img if img.mode == "L" else img.convert("L"))
+
+
+def load_samples(path: str) -> np.ndarray:
+    """An image's samples as stored (OpenCV's ``IMREAD_UNCHANGED``): uint16
+    [H, W] for a 16-bit grey PNG such as a depth map in millimetres. Without
+    PIL, 8- and 16-bit grey PNGs are read."""
+    try:
+        from PIL import Image
+    except ImportError:
+        (w, h, depth, color_type, _, _, interlace), _, data = _png_parts(path)
+        if color_type != 0 or depth not in (8, 16) or interlace != 0:
+            raise ValueError(f"{path}: without PIL only 8- and 16-bit grey PNGs are read "
+                             f"as stored; install PIL for the rest")
+        raw = _unfilter(data, h, w * depth // 8, depth // 8)
+        return raw if depth == 8 else raw.view(">u2").astype(np.uint16)
+    with Image.open(path) as img:
+        return np.asarray(img)

@@ -1,8 +1,10 @@
 """What chip_smoke.py builds on the host, checked on the CPU: its copy of
 bench.make_scene, its imports, the hard cases of phase 3 (through the plain
-versions, which the kernels are held to on the card) and K2's cases."""
+versions, which the kernels are held to on the card), K2's cases, and phase
+11's scene and cameras against bench_all.py's."""
 
 import ast
+import json
 import os
 
 import numpy as np
@@ -74,3 +76,58 @@ def test_k1_case_stresses_what_it_is_for(case):
     keys, _ = binning.duplicate_with_keys(pre, gx, cull=False)
     assert keys.shape[0] == int(pre.tiles_touched.sum())
     chip_smoke.check_k1_case(case, pre, W, H, gids, keys.shape[0])
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_sphere_scene_is_bench_all_extract_mesh_scene(monkeypatch):
+    """Phase 11's scene and cameras are those of bench_all.py
+    bench_extract_mesh: its model and orbit cameras, caught as they reach
+    extract_mesh, equal the port's."""
+    import bench_all
+    from gaustudio_tpu.pipelines import mesh_extraction as j_me
+
+    seen = {}
+
+    def capture(pcd, renderer, cams, **kw):
+        seen.update(pcd=pcd, cams=cams, kw=kw)
+        raise _Captured
+
+    monkeypatch.setattr(j_me, "extract_mesh", capture)
+    with pytest.raises(_Captured):
+        bench_all.bench_extract_mesh()
+    assert seen["kw"] == dict(chip_smoke.MESH_KW, stride=1, downsample=1)
+    xyz, rgb = chip_smoke.sphere_points()
+    np.testing.assert_array_equal(xyz, np.asarray(seen["pcd"]._xyz))
+    pcd = chip_smoke.sphere_model(chip_smoke.MESH_N, CPU)
+    for name in ("_xyz", "_f_dc", "_f_rest", "_rot", "_opacity"):
+        np.testing.assert_array_equal(getattr(pcd, name).numpy(), np.asarray(getattr(
+            seen["pcd"], name)).reshape(getattr(pcd, name).shape), err_msg=name)
+    np.testing.assert_allclose(pcd._scale.numpy(), np.asarray(seen["pcd"]._scale), rtol=1e-6)
+    assert pcd.active_sh_degree == seen["pcd"].active_sh_degree == 0
+    cams = chip_smoke.orbit_cameras(chip_smoke.MESH_VIEWS, chip_smoke.MESH_SIZE, CPU)
+    assert len(cams) == len(seen["cams"]) == 12
+    for got, want in zip(cams, seen["cams"]):
+        assert (got.image_width, got.image_height, got.FoVx) == (
+            want.image_width, want.image_height, want.FoVx)
+        np.testing.assert_array_equal(got.extrinsics.numpy(), np.asarray(want.extrinsics))
+
+
+def test_full_width_orbit_cameras_keep_the_focal_length(tmp_path):
+    """Phase 11's 1920x1080 cameras: FoVx 60 degrees, one focal length for
+    both axes, the orbit's poses."""
+    from gaustudio_torch.datasets.utils import JSON_to_camera
+
+    path = chip_smoke.write_orbit_cameras(str(tmp_path / "c.json"), 36, 1920, 1080)
+    with open(path) as f:
+        cams = [JSON_to_camera(cj, device="cpu") for cj in json.load(f)]
+    orbit = chip_smoke.orbit_cameras(36, 1920, CPU)
+    assert len(cams) == 36
+    for cam, ref in zip(cams, orbit):
+        assert (cam.image_width, cam.image_height) == (1920, 1080)
+        assert cam.FoVx == pytest.approx(np.radians(60), abs=1e-12)
+        K = cam.intrinsics.numpy()
+        assert K[0, 0] == K[1, 1] and (K[0, 2], K[1, 2]) == (960, 540)
+        np.testing.assert_allclose(cam.extrinsics.numpy(), ref.extrinsics.numpy(), atol=1e-6)

@@ -9,6 +9,7 @@ The raising half hides the card with a monkeypatched
 """
 
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -16,9 +17,12 @@ import torch
 
 from gaustudio_torch import models, renderers
 from gaustudio_torch.cameras import Camera
+from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
 from gaustudio_torch.datasets.utils import JSON_to_camera
 from gaustudio_torch.models.base import BasePointCloud
 from gaustudio_torch.models.vanilla import VanillaPointCloud
+from gaustudio_torch.ops import tsdf as t_tsdf
+from gaustudio_torch.pipelines import mesh_extraction as t_mesh_extraction
 from gaustudio_torch.pipelines import train as t_train
 from gaustudio_torch.pipelines import train_surfel as t_train_surfel
 
@@ -62,6 +66,23 @@ def _state_tensors(state):
     return list(state.params.values()) + [state.xyz_grad_accum, state.opt.mu["xyz"]]
 
 
+def _extract_mesh_volume(tmp, **kw):
+    """extract_mesh on host cameras and model; its TSDF grid."""
+    grids = []
+    integrate = t_tsdf.integrate
+
+    def spy(vol, *args):
+        grids.append(vol.tsdf)
+        return integrate(vol, *args)
+
+    pcd = VanillaPointCloud.from_jax_params(_params(), device="cpu")
+    renderer = renderers.make({"name": "vanilla_renderer"}, device="cpu")
+    with mock.patch.object(t_tsdf, "integrate", spy):
+        t_mesh_extraction.extract_mesh(pcd, renderer, _cpu_views(), stride=1, downsample=1,
+                                       voxel_size=0.1, **kw)
+    return grids
+
+
 # entry point -> fn(tmp_path, **device kwargs) -> the tensors it made
 ENTRY_POINTS = {
     "renderers.make vanilla_renderer": lambda tmp, **kw: [
@@ -87,6 +108,15 @@ ENTRY_POINTS = {
         t_train.state_from_jax(_jax_like_state(), **kw)),
     "load_checkpoint": lambda tmp, **kw: _state_tensors(
         t_train.load_checkpoint(_checkpoint(tmp), **kw)),
+    "get_path_from_orbit": lambda tmp, **kw: [
+        get_path_from_orbit(np.zeros(3), 2.0, num_cam=2, image_size=8, **kw)[1].extrinsics],
+    "create_volume": lambda tmp, **kw: [t_tsdf.create_volume(np.zeros(3), (4, 4, 4), 0.1, 0.4,
+                                                             **kw).weight],
+    "volume_from_bounds": lambda tmp, **kw: [t_tsdf.volume_from_bounds(
+        np.zeros(3), np.ones(3), 0.25, 1.0, **kw).tsdf],
+    "TSDFVolume.from_numpy": lambda tmp, **kw: [t_tsdf.TSDFVolume.from_numpy(
+        np.ones((2, 2, 2)), np.zeros((2, 2, 2)), np.zeros(3), 0.1, 0.4, **kw).origin],
+    "extract_mesh": _extract_mesh_volume,
 }
 
 

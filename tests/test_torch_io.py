@@ -2,7 +2,8 @@
 gaustudio_tpu, both on the CPU): ``utils/image.load_image`` against the JAX
 ``Camera.load_image`` on generated files, through PIL and through the stdlib
 PNG reader with PIL's import blocked; ``utils/ply.read_ply`` against the JAX
-reader on binary and ASCII PLYs with and without a face list."""
+reader on binary and ASCII PLYs with and without a face list; grey and
+16-bit PNGs read back as written."""
 
 import sys
 
@@ -100,6 +101,30 @@ def test_load_image_without_pil_names_pil_for_other_files(kind, tmp_path, monkey
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ValueError, match="PIL"):
         t_image.load_image(path)
+
+
+@pytest.mark.parametrize("pil", [True, False], ids=["pil", "stdlib"])
+def test_grey_png_reads_back(pil, tmp_path, monkeypatch):
+    """write_png's grey PNGs (the masks of gs-extract-mesh) read back as
+    written, through PIL (mode L, as the JAX package writes them) and
+    through the stdlib reader; a 16-bit grey PNG (a depth map) reads back
+    as its uint16 samples."""
+    rng = np.random.default_rng(0)
+    grey = rng.integers(0, 256, (13, 9), dtype=np.uint8)
+    depth = rng.integers(0, 65536, (13, 9), dtype=np.uint16)
+    t_image.write_png(str(tmp_path / "g.png"), grey)
+    Image.fromarray(depth).save(tmp_path / "d.png")
+    with Image.open(tmp_path / "g.png") as img:
+        assert img.mode == "L"
+        np.testing.assert_array_equal(np.asarray(img), grey)
+    if not pil:
+        monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(t_image.load_grey8(str(tmp_path / "g.png")), grey)
+    np.testing.assert_array_equal(t_image.load_rgb8(str(tmp_path / "g.png")),
+                                  np.repeat(grey[..., None], 3, axis=2))
+    got = t_image.load_samples(str(tmp_path / "d.png"))
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, depth)
 
 
 def _faces(n_vertices: int, n_faces: int, seed: int) -> np.ndarray:

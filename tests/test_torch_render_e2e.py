@@ -79,8 +79,7 @@ def test_gs_render_cli_writes_one_png_per_camera(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--flythrough"], "later slice"),
-    (["-s", FIXTURE], "COLMAP"),
-], ids=["flythrough", "colmap"])
+], ids=["flythrough"])
 def test_gs_render_cli_refuses_deferred_inputs(argv, match):
     base = ["-m", os.path.join(FIXTURE, "gaussians.ply"), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=match):

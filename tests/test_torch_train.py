@@ -264,10 +264,9 @@ def test_gs_train_cli_writes_the_inria_layout(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dataset", "colmap"], "COLMAP"),
     (["--dataset", "nerf", "--config", "2dgs", "--gs_shards", "2"], "slice 8"),
     (["--dataset", "nerf", "--gs_shards", "2"], "slice 8"),
-], ids=["colmap", "2dgs", "gs_shards"])
+], ids=["2dgs", "gs_shards"])
 def test_gs_train_cli_refuses_deferred_inputs(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         t_train_cli.main(["-s", str(tmp_path), "-o", str(tmp_path / "out"), "--device", "cpu"]
