@@ -68,12 +68,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    orbit cameras at 1920x1080: the grid's dims, the wall, the peak device
    memory, the device's busy share, the ms a view of the render, the
    integrate and the file writes, and the seconds of marching tetrahedra.
-   K1, K2 and K3 (K5 for 2dgs) must launch there, K4 and K6 must not.
+   K1, K2 and K3 (K5 for 2dgs) must launch there, K4 and K6 must not;
+12. the model and renderer variants: gs-render --config mip, gsplat (on the
+   300k scene of phase 5), pcd (its xyz and colours, written with store_ply)
+   and scaffold (30k anchors at the config's widths from make_scene(30000)'s
+   means: 300k decoded Gaussians) from the three 1080p cameras, each with
+   its launches (K1-K3, not K4), lit fraction, middle view through the
+   kernels against the plain path (K3's tolerance), rasterize() wall and
+   busy share; mip's filtered opacities at most the raw ones, gsplat's image
+   not vanilla's; then 30 Scaffold steps at 1080p against the vanilla
+   scene's renders (K1-K4, ms/it, stages, busy share) and one
+   adjust_anchors, timed; 12 Scaffold steps on the fixture with the kernels
+   against the plain versions (final PSNR within 0.1 dB); and gs-train
+   --config scaffold on the fixture, its exported model's PSNR against its
+   first logged PSNR at or above the gate taken from the JAX trainer.
 
-Each path (phases 4, 5, 6, 8, 9 and 11) is driven with every launch count
+Each path (phases 4, 5, 6, 8, 9, 11 and 12) is driven with every launch count
 set to 0 just before it and read just after; a kernel of the path that was
 not launched fails the run. The report's ``launches`` sums the counts of the
-render, training and mesh paths (phases 5, 6, 8, 9 and 11). The last two lines are
+render, training, mesh and variant paths (phases 5, 6, 8, 9, 11 and 12). The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -1723,6 +1736,372 @@ def mesh_full(out_dir: str, device, card: str) -> dict:
     return counts
 
 
+# --- phase 12: the model and renderer variants ----------------------------
+
+# gs-render --config mip|gsplat|pcd|scaffold at 1080p (the 300k scene of
+# phase 5; pcd its xyz and colours; scaffold anchors at the config's widths
+# from make_scene(30000)'s means: about 30k anchors, 300k decoded Gaussians),
+# Scaffold training at that width, and gs-train --config scaffold on the
+# fixture. The lit-fraction guard of a render: colour > 0 in more than this
+# share of the pixels.
+VARIANT_LIT_MIN = {"mip": 0.9, "gsplat": 0.9, "pcd": 0.5, "scaffold": 0.5}
+SCAFFOLD_SCENE_N, SCAFFOLD_SEED = 30_000, 0
+# the offsets' scaling and the decoded Gaussians' base scale: sigmoid(0) = 0.5
+# of 0.016 is make_scene's median scale 0.008
+SCAFFOLD_LOG_SCALES = (math.log(0.05), math.log(0.016))
+SCAFFOLD_STEPS = 30
+SCAFFOLD_CHECK_STEPS = 12  # kernels against plain, on the fixture (phase 6b's check)
+SCAFFOLD_FIXTURE_ITERS = 500
+# The JAX ScaffoldTrainer on mini_scene from its sparse points, 500 iterations,
+# on the CPU (``JAX_PLATFORMS=cpu python -m tests.test_torch_scaffold 500``):
+# the exported model's mean PSNR over the fixture's views against the first
+# logged (iteration 100) training PSNR. The gate is that gain less 1 dB.
+SCAFFOLD_JAX_GAIN_DB = 13.731001655432792  # 18.8152 (iteration 100) -> 32.5462 dB
+SCAFFOLD_FIXTURE_GATE_DB = SCAFFOLD_JAX_GAIN_DB - 1.0
+TRAIN_PATH = FORWARD + ("render_tiles_backward",)
+
+
+def scaffold_config() -> dict:
+    from gaustudio_torch.config import builtin_config_path, load_config
+
+    return dict(load_config(builtin_config_path("scaffold"))["model"]["pointcloud"])
+
+
+def scaffold_model(xyz: np.ndarray, device, seed: int = SCAFFOLD_SEED):
+    """Anchors of the scaffold config (10 offsets, a 32-wide feature, voxel
+    0.001) at the voxels of ``xyz``: offsets and features N(0, 1) from
+    ``seed``, offset scaling 0.05 and base scale 0.016, the heads drawn by the
+    model's generator seeded with ``seed``."""
+    from gaustudio_torch import models
+
+    pcd = models.make({**scaffold_config(), "seed": seed}, device=device)
+    pcd.create_from_attribute(xyz=xyz)
+    n, k = pcd.num_points, pcd.n_offsets
+    rng = np.random.default_rng(seed)
+    pcd._offset = torch.from_numpy(rng.normal(size=(n, 3 * k)).astype(np.float32)).to(device)
+    pcd._anchor_feat = torch.from_numpy(
+        rng.normal(size=(n, pcd.feat_dim)).astype(np.float32)).to(device)
+    scale = np.empty((n, 6), np.float32)
+    scale[:, :3], scale[:, 3:] = SCAFFOLD_LOG_SCALES
+    pcd._scale = torch.from_numpy(scale).to(device)
+    return pcd
+
+
+def write_variant_scenes(out_dir: str, device) -> dict:
+    """{config: PLY} of the variants' models: the 300k scene as a plain point
+    cloud (store_ply) and the Scaffold anchors (with the heads' sidecar)."""
+    from gaustudio_torch.utils.ply import store_ply
+
+    xyz, _, _, _, colors = make_scene(FULL_N, seed=0)
+    pcd_ply = os.path.join(out_dir, "pcd_scene.ply")
+    store_ply(pcd_ply, xyz, (colors * 255.0).astype(np.uint8))
+    scaffold_ply = os.path.join(out_dir, "scaffold_scene.ply")
+    scaffold_model(make_scene(SCAFFOLD_SCENE_N, seed=SCAFFOLD_SEED)[0], device).export(scaffold_ply)
+    return {"pcd": pcd_ply, "scaffold": scaffold_ply}
+
+
+def compare_rasterize(got: dict, ref: dict, what: str) -> float:
+    """rasterize() through the kernels against its plain path: floats within
+    K3's tolerance, int outputs exact; returns the largest float error."""
+    err = 0.0
+    for key, a in got.items():
+        b = ref[key]
+        if not isinstance(a, torch.Tensor) or a.dtype != torch.float32:
+            check(torch.equal(torch.as_tensor(a), torch.as_tensor(b)), f"{what}: {key} differs")
+            continue
+        check(torch.isfinite(a).all(), f"{what}: non-finite {key}")
+        err = max(err, float((a - b).abs().max()))
+        torch.testing.assert_close(a, b, atol=K3_ATOL, rtol=K3_RTOL, msg=f"{what}: {key}")
+    return err
+
+
+def variant_render(out_dir: str, config: str, ply: str, cams_path: str, device, card: str):
+    """gs-render --config ``config`` of ``ply`` from the three 1080p cameras,
+    then the middle view through the kernels against the plain path, timed.
+    Returns (launch counts, model, renderer, camera, render)."""
+    from gaustudio_torch import models, renderers
+    from gaustudio_torch.config import builtin_config_path, load_config
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.scripts import render as gs_render
+
+    reset_counts()
+    t0 = time.perf_counter()
+    images = gs_render.main(["-m", ply, "-s", cams_path, "--sh", "3", "--config", config,
+                             "--device", "cuda", "-o", os.path.join(out_dir, f"variant_{config}")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    say("variants", f"gs-render --config {config} {FULL_VIEWS} views of {FULL_W}x{FULL_H}: "
+        f"{wall:.2f} s wall (load, render, PNG); launches {json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in FORWARD), f"{config}: a kernel was not launched: {counts}")
+    check(counts["render_tiles_backward"] == 0, f"{config}: the backward ran: {counts}")
+    check(len(os.listdir(images)) == FULL_VIEWS, os.listdir(images))
+
+    conf = load_config(builtin_config_path(config))
+    pcd = models.make(conf["model"]["pointcloud"], device=device)
+    pcd.load(ply)
+    pcd.active_sh_degree = 3
+    renderer = renderers.make(conf["renderer"], device=device)
+    cam = load_cameras(cams_path, device)[1]
+    out = renderer.render(cam, pcd)
+    rgb = out["render"]
+    check(rgb.shape == (3, FULL_H, FULL_W) and torch.isfinite(rgb).all(),
+          f"{config}: render {tuple(rgb.shape)} is not a finite [3, {FULL_H}, {FULL_W}] image")
+    lit = float((rgb.sum(0) > 0).float().mean())
+    say("variants", f"{config}: lit fraction {lit:.4f} (guard > {VARIANT_LIT_MIN[config]}), mean "
+        f"{float(rgb.mean()):.4f}, {out['num_rendered']} entries, {pcd.num_points} points")
+    check(lit > VARIANT_LIT_MIN[config], f"{config}: render mostly empty: {lit:.3f} lit")
+
+    with torch.inference_mode():
+        xyz, shs, colors, opacity, scales, rotations, cov3d = (
+            renderer.get_gaussians_properties(cam, pcd))
+        st = renderer.make_settings(cam, pcd, device)
+
+        def run(settings):
+            return rast.rasterize(xyz, opacity, settings, shs=shs, colors_precomp=colors,
+                                  scales=scales, rotations=rotations, cov3D_precomp=cov3d,
+                                  active_sh_degree=3 if shs is not None else None)
+
+        t0 = time.perf_counter()
+        ref = run(st._replace(backend="plain"))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = compare_rasterize(run(st), ref, f"{config} kernels against plain")
+        run(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run(st)
+        torch.cuda.synchronize()
+        kernels_s = (time.perf_counter() - t0) / 20
+        say("time", f"{config}: rasterize {FULL_W}x{FULL_H} {xyz.shape[0]} Gaussians: kernels "
+            f"{kernels_s * 1e3:.3f} ms wall (mean of 20 warm calls) = "
+            f"{FULL_W * FULL_H / 1e6 / kernels_s:.2f} MPix/s; plain {plain_s * 1e3:.1f} ms (one "
+            f"call); kernels - plain max|err| {err:.2e} (tol {K3_ATOL:g} + {K3_RTOL:g}*|x|, int "
+            f"outputs exact) | {card}")
+        busy_share(f"{config}: rasterize {FULL_W}x{FULL_H}", lambda: run(st), kernels_s, card)
+    return counts, pcd, renderer, cam, out
+
+
+def scaffold_step_breakdown(state, batch, settings, cfg, heads, k: int) -> dict:
+    """One Scaffold step's stages between CUDA events: the decode and
+    rasterize() forward, the loss, the backward (and inside it K4's node),
+    Adam with the statistics."""
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.pipelines import train_scaffold as TSc
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    device = batch.gt_image.device
+    s = settings._replace(viewmatrix=batch.viewmatrix, projmatrix=batch.projmatrix,
+                          campos=batch.campos, bg=torch.zeros(3, device=device))
+    ev[0].record()
+    params = {key: v.detach().requires_grad_(True) for key, v in state.params.items()}
+    offset2d = torch.zeros((state.num_anchors * k, 2), device=device, requires_grad=True)
+    xyz, color, opacity, scales, rots, neural_op = TSc.decode_scaffold(params, heads, s.campos, k)
+    out = rast.rasterize(xyz, opacity, s, colors_precomp=color, scales=scales, rotations=rots,
+                         means2D_offset=offset2d)
+    ev[1].record()
+    node = out["render"].grad_fn
+    node.register_prehook(lambda grad_outputs: ev[5].record())
+    node.register_hook(lambda grad_inputs, grad_outputs: ev[6].record())
+    loss = TSc.scaffold_loss(out, opacity, scales, batch.gt_image, cfg)
+    ev[2].record()
+    leaves = list(params.values()) + [offset2d]
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]  # rot is not decoded
+    ev[3].record()
+    with torch.no_grad():
+        live = (out["radii"] > 0) & (opacity > 0.0)
+        _ = (state.offset_grad_accum + torch.where(live, grads[-1].norm(dim=-1), 0.0),
+             torch.clamp(neural_op, 0.0, 1.0).reshape(-1, k).sum(1), live.reshape(-1, k).any(1))
+        TSc.shared_adam_update(dict(zip(params, grads[:-1])), state.mu, state.nu,
+                               state.opt_count, state.params,
+                               TSc.learning_rates(state.params, state.step, cfg))
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("decode + forward", "loss", "backward", "Adam + statistics")
+    times = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    times["K4's node inside backward"] = ev[5].elapsed_time(ev[6])
+    return times
+
+
+def scaffold_train_full(pcd, ply: str, cams_path: str, device, card: str) -> dict:
+    """SCAFFOLD_STEPS steps of the full-width anchors against the three 1080p
+    views of the 300k vanilla scene, then one adjust_anchors call (its
+    interval set to the steps taken); returns the launch counts of the steps."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.pipelines import train_scaffold as TSc
+
+    cams = load_cameras(cams_path, device)
+    vanilla = renderers.make({"name": "vanilla_renderer"}, device=device)
+    target = load_model(ply, 3, device)
+    for cam in cams:
+        cam.image = vanilla.render(cam, target)["render"].permute(1, 2, 0).clone()
+    del target
+    cfg = TSc.ScaffoldTrainConfig(update_interval=SCAFFOLD_STEPS)
+    trainer = TSc.ScaffoldTrainer(pcd, cams, cfg, device=device)
+    batches = [trainer.batch(c) for c in cams]
+    settings = trainer.settings()
+    k = pcd.n_offsets
+    step = lambda state, b: TSc.train_step_scaffold(state, b, settings, cfg, pcd.mlp, k)  # noqa: E731
+    state = trainer.state
+    reset_counts()
+    losses, wall = [], []
+    for i in range(SCAFFOLD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    label = f"Scaffold {FULL_W}x{FULL_H}, {state.num_anchors} anchors x {k}"
+    check(all(counts[key] > 0 for key in TRAIN_PATH), f"{label}: a kernel was not launched: "
+          f"{counts}")
+    check(counts["render_tiles_backward"] == SCAFFOLD_STEPS, f"{label}: K4 launches {counts}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    median = statistics.median(wall[5:])
+    say("train", f"{label}: loss {losses[0]:.5f} (step 1) -> {losses[-1]:.5f} (step "
+        f"{SCAFFOLD_STEPS}); {median:.3f} ms/it (median of steps 6-{SCAFFOLD_STEPS}, each fenced "
+        f"by synchronize; min {min(wall[5:]):.3f}, max {max(wall[5:]):.3f}); {metrics['num_rendered']}"
+        f" entries; launches {json.dumps(counts)} | {card}")
+    busy_share(f"{label} training step", lambda: step(state, batches[0]), median / 1e3, card)
+    runs = [scaffold_step_breakdown(state, batches[i % len(batches)], settings, cfg, pcd.mlp, k)
+            for i in range(5)]
+    say("train", f"{label}: one step by stage (CUDA events, median of 5 steps, ms): "
+        + ", ".join(f"{key} {statistics.median(r[key] for r in runs):.3f}" for key in runs[0])
+        + f" | {card}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adjusted = TSc.adjust_anchors(state, cfg, pcd)
+    torch.cuda.synchronize()
+    adjust_ms = (time.perf_counter() - t0) * 1e3
+    for key, v in adjusted.params.items():
+        check(torch.isfinite(v).all(), f"{label}: non-finite {key} after adjust_anchors")
+    say("train", f"{label}: adjust_anchors {adjust_ms:.3f} ms: {state.num_anchors} -> "
+        f"{adjusted.num_anchors} anchors (statistics of {SCAFFOLD_STEPS} steps, interval "
+        f"{cfg.update_interval}) | {card}")
+    return counts
+
+
+def scaffold_kernels_vs_plain(device, card: str, steps: int = SCAFFOLD_CHECK_STEPS) -> None:
+    """The same Scaffold steps through the kernels and through the plain
+    versions, from one model of the fixture's sparse points (scaffold_model),
+    one camera sequence: final mean PSNR within 0.1 dB."""
+    from gaustudio_torch import datasets
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.pipelines import train_scaffold as TSc
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    ds = datasets.make({"name": "vanilla", "source_path": FIXTURE})
+    pcd = scaffold_model(fetch_ply(os.path.join(FIXTURE, "sparse_points.ply"))[0], device)
+    cfg = TSc.ScaffoldTrainConfig(update_from=10 ** 9)
+    trainer = TSc.ScaffoldTrainer(pcd, ds, cfg, device=device)
+    batches = [trainer.batch(c) for c in trainer.cameras]
+    order = np.random.default_rng(0).integers(len(batches), size=steps)
+    kernel_settings = trainer.settings()
+    k = pcd.n_offsets
+    final = {}
+    for name, settings in (("kernels", kernel_settings),
+                           ("plain", kernel_settings._replace(backend="plain"))):
+        state = TSc.init_scaffold_state(pcd, device)
+        t0 = time.perf_counter()
+        for i in order:
+            state, metrics = TSc.train_step_scaffold(state, batches[i], settings, cfg, pcd.mlp, k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.no_grad():
+            scores = []
+            for b in batches:
+                s = kernel_settings._replace(viewmatrix=b.viewmatrix, projmatrix=b.projmatrix,
+                                             campos=b.campos, bg=torch.zeros(3, device=device))
+                xyz, color, opacity, scales, rots, _ = TSc.decode_scaffold(
+                    state.params, pcd.mlp, b.campos, k)
+                out = rast.rasterize(xyz, opacity, s, colors_precomp=color, scales=scales,
+                                     rotations=rots)
+                scores.append(psnr(out["render"], b.gt_image))
+        final[name] = (float(np.mean(scores)), wall)
+        say("train", f"scaffold: {steps} steps, {pcd.num_points} anchors of the fixture with the "
+            f"{name} versions: {wall:.2f} s, last loss {float(metrics['loss']):.5f}, mean PSNR "
+            f"{final[name][0]:.4f} dB | {card}")
+    gap = final["kernels"][0] - final["plain"][0]
+    say("train", f"scaffold: kernels - plain PSNR {gap:+.4f} dB (tol 0.1)")
+    check(abs(gap) <= 0.1, f"scaffold: kernel and plain training differ by {gap:.4f} dB")
+
+
+def scaffold_train_fixture(out_dir: str, device, card: str) -> dict:
+    """gs-train --config scaffold on the fixture's views from its sparse
+    points: the exported model's mean PSNR against the first logged PSNR, at
+    least SCAFFOLD_FIXTURE_GATE_DB better; returns the launch counts."""
+    from gaustudio_torch import models
+    from gaustudio_torch.scripts import train as gs_train
+
+    src = os.path.join(out_dir, "train_src")
+    out = os.path.join(out_dir, "train_out_scaffold")
+    for d in (src, out):
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(FIXTURE, "images"), os.path.join(src, "images"))
+    shutil.copy(os.path.join(FIXTURE, "cameras.json"), src)
+    os.makedirs(os.path.join(src, "sparse", "0"))
+    shutil.copy(os.path.join(FIXTURE, "sparse_points.ply"),
+                os.path.join(src, "sparse", "0", "points3D.ply"))
+    iters = SCAFFOLD_FIXTURE_ITERS
+    reset_counts()
+    t0 = time.perf_counter()
+    history = gs_train.main(["-s", src, "-o", out, "--dataset", "vanilla", "--iterations",
+                             str(iters), "--save_every", str(iters), "--config", "scaffold",
+                             "--device", "cuda", "--gpu", str(device.index or 0)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    say("train", f"gs-train --config scaffold {iters} iterations on mini_scene: {wall:.2f} s "
+        f"wall; {int(history[-1]['num_points'])} anchors; launches {json.dumps(counts)} | {card}")
+    check(all(counts[key] > 0 for key in TRAIN_PATH), f"a kernel was not launched: {counts}")
+    pcd = models.make(scaffold_config(), device=device)
+    pcd.load(os.path.join(out, "point_cloud", f"iteration_{iters}", "point_cloud.ply"))
+    cams = load_cameras(os.path.join(FIXTURE, "cameras.json"), device)
+    after = float(np.mean(render_psnr(pcd, cams, device, "scaffold_renderer")))
+    first = history[0]
+    gain = after - first["psnr"]
+    say("train", f"scaffold: first logged PSNR {first['psnr']:.4f} dB (iteration "
+        f"{first['iter']}), exported model {after:.4f} dB mean over {len(cams)} views: "
+        f"{gain:+.4f} dB (gate {SCAFFOLD_FIXTURE_GATE_DB:+.4f}: the JAX CPU run's "
+        f"{SCAFFOLD_JAX_GAIN_DB:+.4f} less 1)")
+    check(gain >= SCAFFOLD_FIXTURE_GATE_DB, f"scaffold fixture gain {gain:.3f} dB")
+    return counts
+
+
+def variants(out_dir: str, ply: str, cams_path: str, device, card: str) -> list:
+    """Phase 12; returns the launch counts of its paths."""
+    from gaustudio_torch import renderers
+
+    scenes = write_variant_scenes(out_dir, device)
+    counts = []
+    for config in ("mip", "gsplat"):
+        c, pcd, renderer, cam, out = variant_render(out_dir, config, ply, cams_path, device, card)
+        counts.append(c)
+        if config == "mip":
+            raw = pcd.get_attribute("opacity")
+            check(bool((pcd.get_opacity_with_3D_filter <= raw).all()),
+                  "mip: a filtered opacity exceeds its raw opacity")
+            say("variants", f"mip: filtered opacity mean {float(pcd.get_opacity_with_3D_filter.mean()):.4f}"
+                f" <= raw {float(raw.mean()):.4f}; filter from the first view, median "
+                f"{float(pcd.filter_3D.median()):.3e}")
+        else:
+            vanilla = renderers.make({"name": "vanilla_renderer"}, device=device).render(cam, pcd)
+            diff = float((out["render"] - vanilla["render"]).abs().max())
+            say("variants", f"gsplat - vanilla image max|diff| {diff:.4f} on the same model")
+            check(diff > 1e-3, "gsplat renders the vanilla image")
+    counts.append(variant_render(out_dir, "pcd", scenes["pcd"], cams_path, device, card)[0])
+    c, scaffold, _, _, _ = variant_render(out_dir, "scaffold", scenes["scaffold"], cams_path,
+                                          device, card)
+    counts.append(c)
+    counts.append(scaffold_train_full(scaffold, ply, cams_path, device, card))
+    scaffold_kernels_vs_plain(device, card)
+    counts.append(scaffold_train_fixture(out_dir, device, card))
+    return counts
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -1962,6 +2341,10 @@ def main(argv=None) -> int:
     path_counts.append(mesh_fixture(args.out))
     path_counts.extend(mesh_bench(args.out, device, card))
     path_counts.append(mesh_full(args.out, device, card))
+
+    # phase 12: the model and renderer variants (mip, gsplat, pcd, scaffold)
+    # and Scaffold-GS training
+    path_counts.extend(variants(args.out, ply, cams_path, device, card))
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

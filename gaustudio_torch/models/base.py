@@ -57,8 +57,8 @@ class BasePointCloud:
         self.config["attributes"] = {k: getattr(self, "_" + k).shape[1] for k in given}
 
     def load(self, ply_path: str):
-        """Inria-format checkpoint loader: xyz, opacity and prefix-numbered
-        fields (f_dc_0.., scale_0..)."""
+        """Inria-format checkpoint loader: xyz, opacity, rgb (uint8 red,
+        green, blue / 255) and prefix-numbered fields (f_dc_0.., scale_0..)."""
         data = plyio.read_ply(ply_path)["vertex"]
         names = list(data.keys())
         self.num_points = len(data[names[0]])
@@ -67,6 +67,9 @@ class BasePointCloud:
                 arr = np.stack([data["x"], data["y"], data["z"]], axis=1)
             elif elem == "opacity":
                 arr = np.asarray(data["opacity"])[:, None]
+            elif elem == "rgb":
+                arr = np.stack([data["red"], data["green"], data["blue"]], 1).astype(
+                    np.float32) / 255.0
             else:
                 matching = sorted((n for n in names if n.startswith(elem)),
                                   key=lambda n: int(n.split("_")[-1]))

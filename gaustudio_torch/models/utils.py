@@ -14,17 +14,41 @@ def inverse_sigmoid(x):
 
 
 def get_activation(name):
-    """Name -> elementwise activation (those of the vanilla model's config)."""
+    """Name -> elementwise activation: none, scale<f>, clamp<f>, mul<f>, exp,
+    lin2srgb, +<f> / -<f>, sigmoid, tanh, normalize, softplus, relu."""
     if name is None or name.lower() == "none":
         return lambda x: x
     name = name.lower()
+    if name.startswith("scale"):
+        factor = float(name[5:])
+        return lambda x: torch.clamp(x, 0.0, factor) / factor
+    if name.startswith("clamp"):
+        cmax = float(name[5:])
+        return lambda x: torch.clamp(x, 0.0, cmax)
+    if name.startswith("mul"):
+        factor = float(name[3:])
+        return lambda x: x * factor
     if name == "exp":
         return torch.exp
+    if name == "lin2srgb":
+        return lambda x: torch.clamp(torch.where(
+            x > 0.0031308,
+            torch.pow(torch.clamp_min(x, 0.0031308), 1.0 / 2.4) * 1.055 - 0.055,
+            12.92 * x), 0.0, 1.0)
+    if name.startswith(("+", "-")):
+        shift = float(name)
+        return lambda x: x + shift
     if name == "sigmoid":
         return lambda x: 1.0 / (1.0 + torch.exp(-x))
+    if name == "tanh":
+        return torch.tanh
     if name == "normalize":
         return lambda x: x / torch.clamp_min(
             torch.linalg.norm(x, dim=-1, keepdim=True), 1e-12)
+    if name == "softplus":
+        return lambda x: torch.logaddexp(x, torch.zeros_like(x))
+    if name == "relu":
+        return lambda x: torch.clamp_min(x, 0.0)
     raise ValueError(f"unknown activation: {name}")
 
 

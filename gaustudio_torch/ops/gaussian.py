@@ -200,11 +200,15 @@ def preprocess(
 
     ``means2d_offset`` [N, 2] is added to the pixel means; its gradient is
     the screen-space position gradient that densification accumulates.
+
+    ``intrinsics`` (fx, fy, cx, cy) selects gsplat's projection: the pixel
+    mean is fx tx / tz + cx - 0.5 (the -0.5 puts gsplat's pixel centres on
+    this compositor's integer grid), the EWA focal is fx / fy and the fov
+    clamp uses tan_fov = 0.5 size / focal; ``projmatrix`` and ``tan_fov*``
+    are ignored. ``antialias`` scales each opacity by
+    sqrt(det(cov2d - 0.3 I) / det(cov2d)) (gsplat's antialiased mode) before
+    the support rect is built from it.
     """
-    if antialias:
-        raise NotImplementedError("antialiased preprocess comes with the gsplat slice")
-    if intrinsics is not None:
-        raise NotImplementedError("intrinsics preprocess comes with the gsplat slice")
     grid_x = (image_width + TILE_X - 1) // TILE_X
     grid_y = (image_height + TILE_Y - 1) // TILE_Y
 
@@ -217,14 +221,22 @@ def preprocess(
     else:
         cov3d = build_cov3d(scales, scale_modifier, rotations)
 
-    p_hom = transform_points(means3d, projmatrix)
-    # keep the denominator away from 0 so culled rows near w=0 stay finite
-    p_w = 1.0 / _signed_clamp(p_hom[..., 3] + 1e-7, 1e-4)
-    p_proj = p_hom[..., :3] * p_w[..., None]
-    focal_x = image_width / (2.0 * tan_fovx)
-    focal_y = image_height / (2.0 * tan_fovy)
-    mean2d = torch.stack(
-        [ndc2pix(p_proj[..., 0], image_width), ndc2pix(p_proj[..., 1], image_height)], -1)
+    if intrinsics is not None:
+        focal_x, focal_y, cx, cy = (intrinsics[i] for i in range(4))
+        tan_fovx = 0.5 * image_width / focal_x
+        tan_fovy = 0.5 * image_height / focal_y
+        tz = _signed_clamp(depths, NEAR_CULL_Z)  # as in compute_cov2d
+        mean2d = torch.stack([focal_x * p_view[..., 0] / tz + cx - 0.5,
+                              focal_y * p_view[..., 1] / tz + cy - 0.5], -1)
+    else:
+        p_hom = transform_points(means3d, projmatrix)
+        # keep the denominator away from 0 so culled rows near w=0 stay finite
+        p_w = 1.0 / _signed_clamp(p_hom[..., 3] + 1e-7, 1e-4)
+        p_proj = p_hom[..., :3] * p_w[..., None]
+        focal_x = image_width / (2.0 * tan_fovx)
+        focal_y = image_height / (2.0 * tan_fovy)
+        mean2d = torch.stack(
+            [ndc2pix(p_proj[..., 0], image_width), ndc2pix(p_proj[..., 1], image_height)], -1)
 
     cov2d = compute_cov2d(means3d, focal_x, focal_y, tan_fovx, tan_fovy, cov3d, viewmatrix)
 
@@ -248,6 +260,10 @@ def preprocess(
     # the support ellipse d^T cov2d^-1 d <= 2 ln(255 op); outside it alpha
     # < 1/255 and the compositor skips the pixel anyway.
     op_flat = torch.reshape(opacities, (-1,))
+    if antialias:
+        # det_inv is 0 on culled rows; +1e-12 keeps sqrt's gradient finite
+        det_raw = (cov2d[..., 0] - 0.3) * (cov2d[..., 2] - 0.3) - cov2d[..., 1] * cov2d[..., 1]
+        op_flat = op_flat * torch.sqrt(torch.clamp_min(det_raw, 0.0) * det_inv + 1e-12)
     r_support = torch.sqrt(
         torch.clamp_min(2.0 * torch.log(255.0 * torch.clamp_min(op_flat, 1e-12)), 0.0)
         + 1e-12
@@ -271,7 +287,7 @@ def preprocess(
     if colors_precomp is not None:
         colors = colors_precomp
     else:
-        max_deg = min(sh_ops.MAX_DEGREE, int(round(shs.shape[1] ** 0.5)) - 1)
+        max_deg = min(sh_ops.RASTER_MAX_DEGREE, int(round(shs.shape[1] ** 0.5)) - 1)
         colors, _clamped = sh_ops.sh_to_rgb_clamped(sh_degree, shs, means3d, campos, max_deg)
 
     zero = torch.zeros((), dtype=torch.int32, device=means3d.device)

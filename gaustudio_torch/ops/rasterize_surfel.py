@@ -121,7 +121,7 @@ def preprocess_surfel(means3d, opacities, viewmatrix, projmatrix, campos, image_
     if colors_precomp is not None:
         colors = colors_precomp
     else:
-        max_deg = min(sh_ops.MAX_DEGREE, int(round(shs.shape[1] ** 0.5)) - 1)
+        max_deg = min(sh_ops.RASTER_MAX_DEGREE, int(round(shs.shape[1] ** 0.5)) - 1)
         colors, _ = sh_ops.sh_to_rgb_clamped(sh_degree, shs, means3d, campos, max_deg)
 
     zero = torch.zeros((), dtype=torch.int32, device=means3d.device)

@@ -1,4 +1,4 @@
-"""Spherical-harmonics evaluation for degrees 0-3 (port of gaustudio_tpu/ops/sh.py).
+"""Spherical-harmonics evaluation for degrees 0-4 (port of gaustudio_tpu/ops/sh.py).
 
 Band order and signs follow the reference (band 1 is ``(-y, +z, -x)``).
 """
@@ -26,7 +26,21 @@ C3 = (
     -0.5900435899266435,
 )
 
-MAX_DEGREE = 3
+C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
+
+MAX_DEGREE = 4
+# the rasterizer's colours stop at band 3, as the JAX preprocess's do
+RASTER_MAX_DEGREE = 3
 
 
 def sh_basis(dirs: torch.Tensor, deg: int) -> torch.Tensor:
@@ -57,6 +71,18 @@ def sh_basis(dirs: torch.Tensor, deg: int) -> torch.Tensor:
             C3[5] * z * (xx - yy),
             C3[6] * x * (xx - 3.0 * yy),
         ]
+    if deg > 3:
+        basis += [
+            C4[0] * xy * (xx - yy),
+            C4[1] * yz * (3.0 * xx - yy),
+            C4[2] * xy * (7.0 * zz - 1.0),
+            C4[3] * yz * (7.0 * zz - 3.0),
+            C4[4] * (zz * (35.0 * zz - 30.0) + 3.0),
+            C4[5] * xz * (7.0 * zz - 3.0),
+            C4[6] * (xx - yy) * (7.0 * zz - 1.0),
+            C4[7] * xz * (xx - 3.0 * yy),
+            C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)),
+        ]
     return torch.stack(basis, dim=-1)
 
 
@@ -80,7 +106,7 @@ def band_mask(active_deg: int, num_coeffs: int, dtype=torch.float32, device="cpu
 
 
 def eval_sh_masked(active_deg: int, sh: torch.Tensor, dirs: torch.Tensor,
-                   max_deg: int = MAX_DEGREE) -> torch.Tensor:
+                   max_deg: int = RASTER_MAX_DEGREE) -> torch.Tensor:
     """Like eval_sh over ``max_deg`` bands, with bands above ``active_deg`` masked."""
     coeff = (max_deg + 1) ** 2
     mask = band_mask(active_deg, coeff, sh.dtype, sh.device)
@@ -89,7 +115,7 @@ def eval_sh_masked(active_deg: int, sh: torch.Tensor, dirs: torch.Tensor,
 
 
 def sh_to_rgb_clamped(active_deg: int, sh: torch.Tensor, means: torch.Tensor,
-                      campos: torch.Tensor, max_deg: int = MAX_DEGREE):
+                      campos: torch.Tensor, max_deg: int = RASTER_MAX_DEGREE):
     """View-dependent SH -> RGB with the +0.5 offset, clamped at 0.
 
     sh [N, K, 3] (band-major), means [N, 3], campos [3]. Returns

@@ -1,4 +1,4 @@
-"""Renderers registry (port of gaustudio_tpu/renderers/__init__.py; vanilla and surfel)."""
+"""Renderers registry (port of gaustudio_tpu/renderers/__init__.py)."""
 
 from gaustudio_torch.registry import Registry
 
@@ -6,5 +6,4 @@ _registry = Registry("renderers")
 register = _registry.register
 make = _registry.make
 
-from gaustudio_torch.renderers import vanilla  # noqa: E402,F401
-from gaustudio_torch.renderers import surfel  # noqa: E402,F401
+from gaustudio_torch.renderers import vanilla, pcd, mip, surfel, scaffold, gsplat  # noqa: E402,F401

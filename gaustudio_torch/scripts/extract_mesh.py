@@ -2,7 +2,7 @@
 (port of gaustudio_tpu/scripts/extract_mesh.py, same flags and defaults).
 
     python -m gaustudio_torch.scripts.extract_mesh -m <model dir | ply> \
-        [-s <cameras.json | COLMAP dir>] [--config vanilla|2dgs] [--device cuda|cpu]
+        [-s <cameras.json | COLMAP dir>] [--config vanilla|2dgs|mip|gsplat|scaffold] [--device cuda|cpu]
 
 Runs on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
 for. The cameras come from ``-s``: a cameras.json, or a COLMAP scene

@@ -3,8 +3,9 @@ COLMAP scene.
 
 Port of gaustudio_tpu/scripts/render.py. Run as
 ``python -m gaustudio_torch.scripts.render -m <model> [-s <cameras.json |
-COLMAP dir>] [--config vanilla|2dgs]``; ``--config 2dgs`` renders 2DGS
-surfels through the SurfelRenderer.
+COLMAP dir>] [--config vanilla|2dgs|mip|gsplat|pcd|scaffold]``: the config
+names the model and the renderer (2DGS surfels, Mip-Splatting, gsplat's
+antialiased mode, a plain RGB point cloud, Scaffold-GS anchors).
 Renders on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is
 asked for. Writes one PNG per camera to ``<output>/images``.
 """

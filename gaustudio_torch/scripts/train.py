@@ -1,17 +1,21 @@
-"""gs-train: 3DGS and 2DGS training (port of gaustudio_tpu/scripts/train.py).
+"""gs-train: 3DGS, 2DGS and Scaffold-GS training (port of
+gaustudio_tpu/scripts/train.py).
 
     python -m gaustudio_torch.scripts.train -s <scene> -o <out> \
-        [--dataset colmap|vanilla|nerf] [--config vanilla|2dgs]
+        [--dataset colmap|vanilla|nerf] [--config vanilla|2dgs|mip|gsplat|scaffold]
 
 Trains on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
 for. Starts from ``<scene>/sparse/0/points3D.ply`` when it exists, else from
 the COLMAP ``points3D.bin`` beside it, else from ``--init_points`` random
 points in the camera extent. Writes the Inria
 layout that gs-render reads: ``point_cloud/iteration_N/point_cloud.ply``
-and ``cameras.json``. A config whose renderer is ``surfel_renderer``
-(``--config 2dgs``) trains 2DGS surfels with the SurfelTrainer. Multi-device
-training and scaffold belong to later slices of the port and raise
-NotImplementedError.
+and ``cameras.json``. The config picks the trainer as the JAX CLI does: a
+``scaffold_pcd`` model trains with the ScaffoldTrainer (anchors, and the MLP
+heads in ``point_cloud.ply.mlps.npz``), a ``surfel_renderer`` (``--config
+2dgs``) with the SurfelTrainer, and every other config (vanilla, mip,
+gsplat) with the vanilla Trainer. A config that no trainer takes (``pcd``,
+a plain point cloud) raises ValueError; multi-device training belongs to a
+later slice of the port and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,21 +24,69 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
 from gaustudio_torch.scripts.render import _device
 
 
-def _refuse_deferred(args, config) -> None:
+def _refuse_deferred(args) -> None:
     if args.gs_shards is not None:
         raise NotImplementedError(
             "--gs_shards: multi-device training comes to the port with slice 8")
+
+
+def _refuse_untrainable(config) -> None:
+    """The vanilla Trainer and the SurfelTrainer train a model with SH colours
+    (xyz, f_dc, f_rest, opacity, scale, rot); a plain point cloud has none."""
     model = config["model"]["pointcloud"].get("name", "vanilla_pcd")
-    renderer = config.get("renderer", {}).get("name", "vanilla_renderer")
-    if model != "vanilla_pcd" or renderer not in ("vanilla_renderer", "surfel_renderer"):
-        raise NotImplementedError(
-            f"model {model!r} / renderer {renderer!r}: the model and renderer variants "
-            "(scaffold, mip, gsplat) come to the port with slice 5")
+    if model not in ("vanilla_pcd", "mip_pcd", "scaffold_pcd"):
+        raise ValueError(f"config {config.get('name', '?')!r}: no trainer takes a {model!r} "
+                         "model (gs-train trains vanilla_pcd, mip_pcd and scaffold_pcd)")
+
+
+def _train_scaffold(args, config, dataset, pcd, device):
+    """gs-train of a scaffold_pcd model; returns the logged metrics."""
+    from gaustudio_torch.pipelines import train_scaffold as TSc
+
+    tr_conf = config.get("trainer", {})
+    opt_params = config.get("optimizer", {}).get("params", {}) or {}
+    lr = lambda name, default: float(opt_params.get(name, {}).get("lr", default))  # noqa: E731
+    cfg = TSc.ScaffoldTrainConfig(
+        iterations=args.iterations,
+        lambda_dssim=float(tr_conf.get("lambda_dssim", 0.2)),
+        lambda_vol=float(tr_conf.get("lambda_vol", 0.01)),
+        lr_anchor=lr("anchor", 0.0), lr_offset_init=lr("offset", 0.01),
+        lr_feat=lr("anchor_feat", 0.0075), lr_scale=lr("scale", 0.007), lr_rot=lr("rot", 0.002),
+        update_from=int(tr_conf.get("update_from", 1500)),
+        update_interval=int(tr_conf.get("update_interval", 100)),
+        update_until=int(tr_conf.get("update_until", 15000)),
+        grad_threshold=float(tr_conf.get("densify_grad_threshold", 0.0002)),
+        min_opacity=float(tr_conf.get("min_opacity", 0.005)),
+        success_threshold=float(tr_conf.get("success_threshold", 0.8)),
+        white_background=args.white_background,
+    )
+    trainer = TSc.ScaffoldTrainer(pcd, dataset, cfg, device=device)
+    if args.resume or args.checkpoint_every:
+        print("WARNING: --resume/--checkpoint_every are not supported for scaffold configs "
+              "(anchor+MLP state); use the model config's resume_path to reload a ply")
+
+    def save(iteration):
+        out = os.path.join(args.output_dir, "point_cloud", f"iteration_{iteration}")
+        os.makedirs(out, exist_ok=True)
+        TSc.state_to_scaffold_model(trainer.state, pcd)
+        pcd.export(os.path.join(out, "point_cloud.ply"))
+        dataset.export(os.path.join(args.output_dir, "cameras.json"))
+
+    def log(m):
+        print(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
+              f"anchors {int(m['num_points'])}", flush=True)
+        if m["iter"] % args.save_every == 0:
+            save(m["iter"])
+
+    history = trainer.train(iterations=args.iterations, log_every=100, callback=log,
+                            metrics_path=os.path.join(args.output_dir, "metrics.jsonl"))
+    save(args.iterations)
+    print(f"Training done -> {args.output_dir}")
+    return history
 
 
 def main(argv=None):
@@ -69,13 +121,10 @@ def main(argv=None):
     from gaustudio_torch.pipelines import train as T
     from gaustudio_torch.utils.ply import fetch_ply
 
+    _refuse_deferred(args)
     config_path = args.config if os.path.exists(args.config) else builtin_config_path(args.config)
-    if not os.path.exists(config_path):
-        raise NotImplementedError(
-            f"--config {args.config}: the port ships the vanilla and 2dgs configs; the other "
-            "model and renderer variants come with slice 5")
     config = load_config(config_path, cli_args=extras)
-    _refuse_deferred(args, config)
+    _refuse_untrainable(config)
     device = _device(args)
 
     dataset = datasets.make({"name": args.dataset, "source_path": args.source_path,
@@ -102,6 +151,9 @@ def main(argv=None):
         r = dataset.cameras_extent
         xyz = rng.uniform(-r / 2, r / 2, (n0, 3)).astype(np.float32)
         pcd.create_from_attribute(xyz=xyz, rgb=np.full((n0, 3), 0.5, np.float32))
+
+    if config["model"]["pointcloud"].get("name") == "scaffold_pcd":
+        return _train_scaffold(args, config, dataset, pcd, device)
 
     tr_conf = config.get("trainer", {})
     cfg = T.TrainConfig(

@@ -165,6 +165,19 @@ def write_ply(path: str, vertex_props: Dict[str, np.ndarray],
             f.write(frec.tobytes())
 
 
+def store_ply(path: str, xyz: np.ndarray, rgb: np.ndarray, normals=None) -> None:
+    """A point cloud PLY: float32 x, y, z, nx, ny, nz (zeros without
+    ``normals``) and uint8 red, green, blue."""
+    if normals is None:
+        normals = np.zeros_like(xyz)
+    xyz, normals, rgb = (np.asarray(a) for a in (xyz, normals, rgb))
+    write_ply(path, {
+        **{k: xyz[:, i].astype(np.float32) for i, k in enumerate("xyz")},
+        **{k: normals[:, i].astype(np.float32) for i, k in enumerate(("nx", "ny", "nz"))},
+        **{k: rgb[:, i].astype(np.uint8) for i, k in enumerate(("red", "green", "blue"))},
+    })
+
+
 def fetch_ply(path: str):
     """A point cloud PLY -> (xyz [N, 3], rgb in [0, 1] or None, normals or None)."""
     v = read_ply(path)["vertex"]

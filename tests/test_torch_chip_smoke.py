@@ -131,3 +131,28 @@ def test_full_width_orbit_cameras_keep_the_focal_length(tmp_path):
         K = cam.intrinsics.numpy()
         assert K[0, 0] == K[1, 1] and (K[0, 2], K[1, 2]) == (960, 540)
         np.testing.assert_allclose(cam.extrinsics.numpy(), ref.extrinsics.numpy(), atol=1e-6)
+
+
+def test_phase12_scaffold_generator_holds_its_widths_and_seeds():
+    """Phase 12's Scaffold model at the config's widths: make_scene(30000)'s
+    means voxelized at 0.001 (about 30k anchors, 300k decoded Gaussians), 10
+    offsets and a 32-wide feature of N(0, 1) draws from the seed, the two
+    scale columns, and heads drawn by the seeded generator."""
+    xyz = chip_smoke.make_scene(chip_smoke.SCAFFOLD_SCENE_N, seed=chip_smoke.SCAFFOLD_SEED)[0]
+    pcd = chip_smoke.scaffold_model(xyz, CPU)
+    n = pcd.num_points
+    assert (pcd.n_offsets, pcd.feat_dim, pcd.voxel_size) == (10, 32, 0.001)
+    assert 29_000 <= n <= 30_000 and n * pcd.n_offsets >= 290_000
+    assert n == len(np.unique(np.round(xyz / 0.001).astype(np.int64), axis=0))
+    rng = np.random.default_rng(chip_smoke.SCAFFOLD_SEED)
+    np.testing.assert_array_equal(pcd._offset.numpy(), rng.normal(size=(n, 30)).astype(np.float32))
+    np.testing.assert_array_equal(pcd._anchor_feat.numpy(),
+                                  rng.normal(size=(n, 32)).astype(np.float32))
+    np.testing.assert_allclose(np.exp(pcd._scale.numpy()[:, :3]), 0.05, rtol=1e-6)
+    np.testing.assert_allclose(np.exp(pcd._scale.numpy()[:, 3:]), 0.016, rtol=1e-6)
+    again = chip_smoke.scaffold_model(xyz[:100], CPU)
+    for (name, a), b in zip(pcd.mlp.named_parameters(), again.mlp.parameters()):
+        assert torch.equal(a, b), name
+    assert set(pcd.mlp) == {"opacity", "cov", "color"}
+    assert chip_smoke.SCAFFOLD_FIXTURE_GATE_DB == pytest.approx(
+        chip_smoke.SCAFFOLD_JAX_GAIN_DB - 1.0)

@@ -20,10 +20,13 @@ from gaustudio_torch.cameras import Camera
 from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
 from gaustudio_torch.datasets.utils import JSON_to_camera
 from gaustudio_torch.models.base import BasePointCloud
+from gaustudio_torch.models.mip import MipPointCloud
+from gaustudio_torch.models.scaffold import ScaffoldPointCloud
 from gaustudio_torch.models.vanilla import VanillaPointCloud
 from gaustudio_torch.ops import tsdf as t_tsdf
 from gaustudio_torch.pipelines import mesh_extraction as t_mesh_extraction
 from gaustudio_torch.pipelines import train as t_train
+from gaustudio_torch.pipelines import train_scaffold as t_train_scaffold
 from gaustudio_torch.pipelines import train_surfel as t_train_surfel
 
 CAM_JSON = {"id": 0, "img_name": "v0", "width": 8, "height": 6, "position": [0.0, 0.0, -3.0],
@@ -35,6 +38,22 @@ def _params(n=5, scale_dim=3):
     f = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
     return {"xyz": f(n, 3), "opacity": f(n, 1), "f_dc": f(n, 3), "f_rest": f(n, 45),
             "scale": f(n, scale_dim), "rot": f(n, 4)}
+
+
+def _scaffold_params(n=4, k=2, feat=8):
+    """The raw anchors and JAX-layout heads that from_jax_params reads."""
+    rng = np.random.default_rng(1)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    layer = lambda n_in, n_out: {"w": f(n_in, n_out), "b": f(n_out)}  # noqa: E731
+    return {"anchor": f(n, 3), "offset": f(n, 3 * k), "anchor_feat": f(n, feat),
+            "opacity": f(n, 1), "scale": f(n, 6), "rot": f(n, 4),
+            "mlps": {"opacity": [layer(feat + 4, feat), layer(feat, k)],
+                     "cov": [layer(feat + 4, feat), layer(feat, 7 * k)],
+                     "color": [layer(feat + 4, feat), layer(feat, 3 * k)]}}
+
+
+SCAFFOLD_CONFIG = {"n_offsets": 2, "attributes": {"anchor": 3, "offset": 3, "anchor_feat": 8,
+                                                  "opacity": 1, "scale": 6, "rot": 4}}
 
 
 def _cpu_views():
@@ -89,6 +108,17 @@ ENTRY_POINTS = {
         renderers.make({"name": "vanilla_renderer"}, **kw).bg_color],
     "renderers.make surfel_renderer": lambda tmp, **kw: [
         renderers.make({"name": "surfel_renderer"}, **kw).bg_color],
+    **{f"renderers.make {name}": (lambda name: lambda tmp, **kw: [
+        renderers.make({"name": name}, **kw).bg_color])(name)
+       for name in ("mip_renderer", "gsplat_renderer", "pcd_renderer", "scaffold_renderer")},
+    "MipPointCloud": lambda tmp, **kw: [MipPointCloud(None, **kw)._xyz],
+    "ScaffoldPointCloud.from_jax_params": lambda tmp, **kw: (lambda pcd: [
+        pcd._offset, *pcd.mlp.parameters()])(ScaffoldPointCloud.from_jax_params(
+            _scaffold_params(), config=SCAFFOLD_CONFIG, **kw)),
+    "ScaffoldTrainer": lambda tmp, **kw: list(t_train_scaffold.ScaffoldTrainer(
+        ScaffoldPointCloud.from_jax_params(_scaffold_params(), device="cpu",
+                                           config=SCAFFOLD_CONFIG), _cpu_views(),
+        **kw).state.params.values()),
     "models.make vanilla_pcd": lambda tmp, **kw: [
         models.make({"name": "vanilla_pcd"}, **kw)._xyz],
     "BasePointCloud": lambda tmp, **kw: [

@@ -76,19 +76,3 @@ def test_mark_visible_matches_jax():
                                    _t(st.viewmatrix), None)
     np.testing.assert_array_equal(got.numpy(), want)
     assert not want[:5].any()
-
-
-@pytest.mark.parametrize("kw", [{"antialias": True}, {"intrinsics": torch.ones(4)}],
-                         ids=["antialias", "intrinsics"])
-def test_deferred_branches_raise(kw):
-    scene = _make_scene(n=8, seed=0)
-    st = scene["settings"]
-    with pytest.raises(NotImplementedError):
-        t_gaussian.preprocess(
-            torch.from_numpy(scene["means"]), torch.from_numpy(scene["opac"]),
-            _t(st.viewmatrix),
-            _t(st.projmatrix), torch.zeros(3),
-            st.image_width, st.image_height, st.tanfovx, st.tanfovy,
-            colors_precomp=torch.from_numpy(scene["colors"]),
-            scales=torch.from_numpy(scene["scales"]),
-            rotations=torch.from_numpy(scene["quats"]), **kw)

@@ -273,15 +273,34 @@ def test_gs_train_cli_refuses_deferred_inputs(tmp_path, argv, match):
                          + argv)
 
 
-def test_gs_train_cli_refuses_a_surfel_config(tmp_path):
-    """2DGS trains (tests/test_torch_train_surfel.py); a surfel config whose
-    model variant the port lacks is still refused."""
+def test_gs_train_cli_refuses_a_surfel_config(tmp_path, monkeypatch):
+    """A scaffold_pcd model goes to the ScaffoldTrainer whatever its
+    renderer, as the JAX CLI routes it: a surfel_renderer config trains
+    anchors and exports them with the heads' sidecar."""
+    from gaustudio_torch.pipelines import train_scaffold
+
     conf = tmp_path / "surfel.json"
-    conf.write_text(json.dumps({"model": {"pointcloud": {"name": "scaffold_pcd"}},
+    conf.write_text(json.dumps({"model": {"pointcloud": {"name": "scaffold_pcd", "n_offsets": 2,
+                                                         "voxel_size": 0.05}},
                                 "renderer": {"name": "surfel_renderer"}}))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        t_train_cli.main(["-s", str(tmp_path), "-o", str(tmp_path / "out"), "--device", "cpu",
-                          "--dataset", "nerf", "--config", str(conf)])
+    src = _write_nerf_scene(tmp_path / "scene")
+    routed = []
+    monkeypatch.setattr(train_scaffold.ScaffoldTrainer, "train",
+                        lambda self, **kw: routed.append(type(self)) or [])
+    t_train_cli.main(["-s", str(src), "-o", str(tmp_path / "out"), "--device", "cpu",
+                      "--dataset", "nerf", "--config", str(conf), "--init_points", "50",
+                      "--iterations", "1"])
+    assert routed == [train_scaffold.ScaffoldTrainer]
+    ply = tmp_path / "out" / "point_cloud" / "iteration_1" / "point_cloud.ply"
+    assert os.path.exists(str(ply) + ".mlps.npz")
+
+
+def test_gs_train_cli_refuses_the_pcd_config(tmp_path):
+    """No trainer takes a plain point cloud: the error names the config."""
+    src = _write_nerf_scene(tmp_path / "scene")
+    with pytest.raises(ValueError, match="'pcd'.*general_pcd"):
+        t_train_cli.main(["-s", str(src), "-o", str(tmp_path / "out"), "--device", "cpu",
+                          "--dataset", "nerf", "--config", "pcd"])
 
 
 def test_trainer_densifies_and_checkpoints_roundtrip(tmp_path):
