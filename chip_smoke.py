@@ -81,12 +81,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    adjust_anchors, timed; 12 Scaffold steps on the fixture with the kernels
    against the plain versions (final PSNR within 0.1 dB); and gs-train
    --config scaffold on the fixture, its exported model's PSNR against its
-   first logged PSNR at or above the gate taken from the JAX trainer.
+   first logged PSNR at or above the gate taken from the JAX trainer;
+13. point extraction and the mesh tools: gs-extract-pcd on mini_scene
+   (vanilla and --config 2dgs, with their launches), then every other view
+   through the kernels against the plain compositor and binning (surface ids
+   equal but at pixels within 1e-5 of a threshold, fused normals within 1e-4
+   but at ids a re-vote tie touches, SAP meshes F1 at least 0.999 at half a
+   SAP voxel); gs-extract-pcd with its defaults on phase 11's 300k sphere from
+   36 cameras at 1920x1080 (points before and after cleaning, SAP faces, the
+   wall, peak device memory, busy share, per-stage times; >= 95% of the
+   normals outward, the mesh within 2 SAP voxels of the sphere); and, on
+   phase 11's full-width mesh, gs-render-mesh from the 36 cameras (covered
+   fraction, ms a view of rasterize and files, the middle view held to a
+   float64 per-pixel reference), gs-texture-mesh from phase 11's 12 views
+   (covered share > 0.8) and gs-from-mesh -n 3 with gs-render of its
+   Gaussians at 1080p through K1-K3 (launches, lit fraction, rasterize()
+   wall), also on gs-extract-pcd's closed SAP mesh (lit > 0.5).
 
-Each path (phases 4, 5, 6, 8, 9, 11 and 12) is driven with every launch count
-set to 0 just before it and read just after; a kernel of the path that was
-not launched fails the run. The report's ``launches`` sums the counts of the
-render, training, mesh and variant paths (phases 5, 6, 8, 9, 11 and 12). The last two lines are
+Each path (phases 4, 5, 6, 8, 9, 11, 12 and 13) is driven with every launch
+count set to 0 just before it and read just after; a kernel of the path that
+was not launched fails the run. The report's ``launches`` sums the counts of
+the render, training, mesh, variant and point-extraction paths (phases 5, 6,
+8, 9, 11, 12 and 13). The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -1495,20 +1511,21 @@ def sphere_model(n: int, device, config=None):
     return pcd
 
 
-def orbit_cameras(num_cam: int, size: int, device) -> list:
+def orbit_cameras(num_cam: int, size: int, device, radius: float = MESH_RADIUS) -> list:
     from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
 
-    return get_path_from_orbit(np.zeros(3), MESH_RADIUS, num_cam=num_cam, image_size=size,
+    return get_path_from_orbit(np.zeros(3), radius, num_cam=num_cam, image_size=size,
                                fov_deg=60, device=device)
 
 
-def write_orbit_cameras(path: str, num_cam: int, W: int, H: int) -> str:
+def write_orbit_cameras(path: str, num_cam: int, W: int, H: int,
+                        radius: float = MESH_RADIUS) -> str:
     """A cameras.json of num_cam orbit views at WxH: FoVx 60 degrees and
     the same focal length along y."""
     from gaustudio_torch.datasets.utils import camera_to_JSON
 
     entries = []
-    for i, cam in enumerate(orbit_cameras(num_cam, W, "cpu")):
+    for i, cam in enumerate(orbit_cameras(num_cam, W, "cpu", radius)):
         cj = camera_to_JSON(i, cam)
         cj.update(height=H, fy=cj["fx"], cy=H / 2)
         entries.append(cj)
@@ -1517,8 +1534,16 @@ def write_orbit_cameras(path: str, num_cam: int, W: int, H: int) -> str:
     return path
 
 
-def mesh_counts(tag: str, counts: dict, forward: tuple) -> None:
-    say("mesh", f"{tag}: launches {json.dumps(counts)}")
+def plain_renderer(renderer):
+    """``renderer`` with its settings switched to the plain compositor and
+    binning."""
+    kernel_settings = renderer.make_settings
+    renderer.make_settings = lambda *a: kernel_settings(*a)._replace(backend="plain")
+    return renderer
+
+
+def mesh_counts(tag: str, counts: dict, forward: tuple, phase: str = "mesh") -> None:
+    say(phase, f"{tag}: launches {json.dumps(counts)}")
     check(all(counts[k] > 0 for k in forward), f"{tag}: a kernel was not launched: {counts}")
     check(all(counts[k] == 0 for k in MESH_NEVER), f"{tag}: a backward kernel ran: {counts}")
 
@@ -1588,9 +1613,7 @@ def mesh_bench(out_dir: str, device, card: str) -> list:
 
     # against the plain compositor on every third view (its per-rank loop
     # takes seconds a view on the host)
-    plain = renderers.make({"name": "vanilla_renderer"}, device=device)
-    kernel_settings = plain.make_settings
-    plain.make_settings = lambda *a: kernel_settings(*a)._replace(backend="plain")
+    plain = plain_renderer(renderers.make({"name": "vanilla_renderer"}, device=device))
     kw = dict(MESH_KW, stride=3)
     kernel_mesh = extract_mesh(pcd, renderer, orbit_cameras(MESH_VIEWS, MESH_SIZE, device),
                                device=device, **kw)
@@ -2102,6 +2125,629 @@ def variants(out_dir: str, ply: str, cams_path: str, device, card: str) -> list:
     return counts
 
 
+# --- phase 13: point extraction and the mesh tools --------------------------
+
+# gs-extract-pcd's kernels-against-plain check takes every other mini_scene
+# view (the plain compositor's per-rank loop takes seconds a view on the host)
+PCD_FIXTURE_STRIDE = 2
+# a surface-id difference between the two paths must sit this close to one of
+# the float thresholds that choose the samples (opacity 0.5 and 0.1, median
+# depth against 0.8 x the scene radius)
+PCD_TIE_TOL = 1e-5
+PCD_NORMAL_TOL = 1e-4
+REVOTE_THRESHOLD = 0.8  # pcd_extraction.vote_normals' consistency threshold
+# Gaussians at which the re-vote may keep a sample on one path and drop it on
+# the other (render noise at the threshold) before the check fails
+REVOTE_FLIP_MAX = 5
+PCD_GRID = 128  # gs-extract-pcd's SAP grid (mesh_sap's default)
+# gs-from-mesh's render: orbit views at radius 2.5, where the sphere covers
+# most of the 1080p frame (at radius 3 it covers about half)
+FROM_MESH_RADIUS, FROM_MESH_VIEWS = 2.5, 3
+RASTER_CHECK_PIXELS = 256  # pixels of the middle view held to raster_reference
+RASTER_EMPTY_PIXELS = 32  # ... of them drawn over the whole view, the rest near its coverage
+RASTER_GROW_PX = 2
+STAGED_STRIDE = 3  # the staged runs time every third view's files
+# phase 11's full-width extraction wrote every third camera at half size
+MESH_FULL_STRIDE, MESH_FULL_DOWNSAMPLE = 3, 2
+
+
+def sap_voxel(xyz: np.ndarray, grid_res: int = PCD_GRID) -> float:
+    """The world size of one voxel of ShapeAsPoints' grid over ``xyz``."""
+    return (float(np.max(xyz.max(0) - xyz.min(0))) * 1.2 + 1e-6) / grid_res
+
+
+def sap_f1(a: tuple, b: tuple, xyz: np.ndarray) -> dict:
+    """Phase 11's mesh F1 (MESH_F1_SAMPLES a mesh) of two SAP meshes at half
+    a SAP voxel of the cloud ``xyz``."""
+    from gaustudio_torch.utils.mesh import mesh_f1_score
+
+    return mesh_f1_score(*a, *b, tau=0.5 * sap_voxel(xyz), n_samples=MESH_F1_SAMPLES)
+
+
+def pcd_samples(renderer, pcd, cams: list, radius: float) -> tuple:
+    """Each view's render and surface samples (pcd_extraction.surface_samples)."""
+    from gaustudio_torch.pipelines import pcd_extraction as P
+
+    outs = [renderer.render(cam, pcd) for cam in cams]
+    return outs, [P.surface_samples(o, cam, radius) for o, cam in zip(outs, cams)]
+
+
+def compare_pcd_backends(config: str, device, card: str) -> None:
+    """mini_scene's surface samples, fused normals and SAP meshes through the
+    kernels against the plain compositor and binning, every
+    PCD_FIXTURE_STRIDE-th view."""
+    from scipy.spatial import cKDTree
+
+    from gaustudio_torch import models, renderers
+    from gaustudio_torch.config import builtin_config_path, load_config
+    from gaustudio_torch.datasets.utils import getNerfppNorm
+    from gaustudio_torch.pipelines import pcd_extraction as P
+
+    conf = load_config(builtin_config_path(config))
+    pcd = models.make(conf["model"]["pointcloud"], device=device)
+    pcd.load(os.path.join(FIXTURE, "gaussians.ply"))
+    pcd.active_sh_degree = 0
+    cams = load_cameras(os.path.join(FIXTURE, "cameras.json"), device)[::PCD_FIXTURE_STRIDE]
+    radius = getNerfppNorm(cams)["radius"]
+    outs, kern = pcd_samples(renderers.make(conf["renderer"], device=device), pcd, cams, radius)
+    plain_outs, plain = pcd_samples(plain_renderer(renderers.make(conf["renderer"], device=device)),
+                                    pcd, cams, radius)
+    differ, loose = 0, set()
+    for out, plain_out, k, p in zip(outs, plain_outs, kern, plain):
+        opacity, med = out["rendered_final_opacity"][0], out["rendered_median_depth"][0]
+        near = ((opacity - 0.5).abs() < PCD_TIE_TOL) | ((opacity - 0.1).abs() < PCD_TIE_TOL) | (
+            (med - 0.8 * radius).abs() < PCD_TIE_TOL)
+        diff = k["valid"] ^ p["valid"]
+        check(bool(near[diff].all()), f"{config}: {int((diff & ~near).sum())} pixels choose other "
+              "surface samples through the kernels than through the plain path, off every threshold")
+        ids, plain_ids = out["rendered_median_id"][0], plain_out["rendered_median_id"][0]
+        both = k["valid"] & p["valid"]
+        check(torch.equal(ids[both], plain_ids[both]), f"{config}: the median ids differ")
+        differ += int(diff.sum())
+        loose.update(ids[diff].tolist() + plain_ids[diff].tolist())
+    flipped, flips, noise, dn = revote_ties(pcd, kern, plain, cams)
+    say("pcd", f"--config {config}: re-vote: {len(flips)} samples kept on one path and dropped "
+        f"on the other (id, distance - {REVOTE_THRESHOLD} through the kernels, through the plain "
+        f"path: {', '.join(f'{i} {a:+.3e} {b:+.3e}' for i, a, b in flips) or 'none'}); the "
+        f"paths' distances differ by at most {noise:.3e}, their sample normals by {dn:.3e}")
+    check(len(flipped) <= REVOTE_FLIP_MAX, f"{config}: the re-vote parts the paths at "
+          f"{len(flipped)} ids (at most {REVOTE_FLIP_MAX})")
+    loose |= flipped
+    fused = {}
+    for name, samples in (("kernels", kern), ("plain", plain)):
+        fused[name] = P.normal_fusion(pcd, [s["ids"] for s in samples],
+                                      [s["normals"] for s in samples],
+                                      [s["conf"] for s in samples], cams)
+    (ids_k, n_k), (ids_p, n_p) = fused["kernels"], fused["plain"]
+    check(set(ids_k.tolist()) ^ set(ids_p.tolist()) <= loose,
+          f"{config}: the surface ids differ beyond the {differ} pixels at a threshold")
+    common, ik, ip = np.intersect1d(ids_k, ids_p, return_indices=True)
+    # the kNN smoothing carries a loose id's normal to its neighbours
+    xyz = pcd._xyz[torch.as_tensor(common, device=device)].cpu().numpy()
+    _, nbrs = cKDTree(xyz).query(xyz, k=min(10, len(xyz)))
+    keep = ~np.isin(common[nbrs], list(loose)).any(1)
+    err = float(np.abs(n_k[ik][keep] - n_p[ip][keep]).max())
+    check(err <= PCD_NORMAL_TOL, f"{config}: fused normals differ by {err:.3e}")
+
+    meshes, clouds = {}, {}
+    for name, (ids, normals) in fused.items():
+        xyz = pcd._xyz[torch.as_tensor(ids, device=device)].cpu().numpy()
+        clouds[name] = P.clean_point_cloud(xyz, P.surface_colors(pcd, ids), normals)
+        meshes[name] = P.mesh_sap(clouds[name][0], clouds[name][2], device=device)
+    f1 = sap_f1(meshes["kernels"], meshes["plain"], clouds["kernels"][0])
+    say("pcd", f"--config {config}, {len(cams)} mini_scene views, kernels against plain: "
+        f"{len(ids_k)} / {len(ids_p)} surface ids ({differ} pixels differ, each within "
+        f"{PCD_TIE_TOL:g} of a threshold; {len(loose)} ids at a threshold or parted by the "
+        f"re-vote), fused normals max|err| {err:.3e} on the {int(keep.sum())} common ids with "
+        f"no such id among their kNN neighbours ({len(common) - int(keep.sum())} left out; "
+        f"tol {PCD_NORMAL_TOL:g}), SAP meshes {len(meshes['kernels'][1])} / "
+        f"{len(meshes['plain'][1])} faces, F1 {f1['f1']:.6f} at half a SAP voxel "
+        f"({MESH_F1_SAMPLES} samples a mesh; floor 0.999) | {card}")
+    check(f1["f1"] >= 0.999, f"{config}: kernel and plain SAP meshes differ: F1 {f1['f1']:.6f}")
+
+
+def revote_distances(pcd, samples: list, cams: list) -> torch.Tensor:
+    """Each sample's distance from its Gaussian's first-vote mean normal,
+    which the re-vote compares with REVOTE_THRESHOLD, in sample order."""
+    from gaustudio_torch.pipelines import pcd_extraction as P
+
+    ids, normals = [s["ids"] for s in samples], [s["normals"] for s in samples]
+    # with an infinite threshold the re-vote keeps every sample: the first mean
+    uniq, mean = P.vote_normals(pcd._xyz, ids, normals, [s["conf"] for s in samples], cams,
+                                consistency_threshold=math.inf)
+    cat_ids, cat_normals = torch.cat(ids), torch.cat(normals)
+    return torch.linalg.norm(cat_normals.double() - mean[torch.searchsorted(uniq, cat_ids)], dim=1)
+
+
+def revote_ties(pcd, kern: list, plain: list, cams: list) -> tuple:
+    """The samples that the re-vote keeps on one path and drops on the
+    other, at the pixels valid on both: (their Gaussian ids, a list of
+    (id, distance - REVOTE_THRESHOLD through the kernels, through the plain
+    path)), the largest difference between the two paths' distances over
+    every such sample, and the largest difference of a sample's normal."""
+    d = {}
+    for name, samples in (("kernels", kern), ("plain", plain)):
+        d[name] = revote_distances(pcd, samples, cams)
+    pos_k, pos_p, start_k, start_p = [], [], 0, 0
+    for k, p in zip(kern, plain):
+        both = (k["valid"] & p["valid"]).flatten()
+        rank_k = torch.cumsum(k["valid"].flatten().long(), 0) - 1
+        rank_p = torch.cumsum(p["valid"].flatten().long(), 0) - 1
+        pos_k.append(rank_k[both] + start_k)
+        pos_p.append(rank_p[both] + start_p)
+        start_k += len(k["ids"])
+        start_p += len(p["ids"])
+    pos_k, pos_p = torch.cat(pos_k), torch.cat(pos_p)
+    d_k, d_p = d["kernels"][pos_k], d["plain"][pos_p]
+    n_k = torch.cat([s["normals"] for s in kern])[pos_k]
+    n_p = torch.cat([s["normals"] for s in plain])[pos_p]
+    noise = float((d_k - d_p).abs().max()) if len(pos_k) else 0.0
+    dn = float((n_k - n_p).abs().max()) if len(pos_k) else 0.0
+    flip = (d_k < REVOTE_THRESHOLD) != (d_p < REVOTE_THRESHOLD)
+    ids = torch.cat([s["ids"] for s in kern])[pos_k][flip].tolist()
+    rows = list(zip(ids, (d_k[flip] - REVOTE_THRESHOLD).tolist(),
+                    (d_p[flip] - REVOTE_THRESHOLD).tolist()))
+    return set(ids), rows, noise, dn
+
+
+def pcd_fixture(out_dir: str, device, card: str) -> list:
+    """gs-extract-pcd on mini_scene through the CLI (vanilla and --config
+    2dgs), each with its launches, then against the plain path."""
+    from gaustudio_torch.scripts import extract_pcd as gs_extract_pcd
+    from gaustudio_torch.utils.mesh import load_mesh
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    # a PLY model's cloud lands beside it (<model>_fused.ply): a copy in out_dir
+    model = os.path.join(out_dir, "pcd_fixture.ply")
+    shutil.copy(os.path.join(FIXTURE, "gaussians.ply"), model)
+    counts = []
+    for config, forward in (("vanilla", FORWARD), ("2dgs", SURFEL_FORWARD)):
+        reset_counts()
+        fused, mesh = gs_extract_pcd.main([
+            "-m", model, "-c", os.path.join(FIXTURE, "cameras.json"), "-o",
+            os.path.join(out_dir, f"pcd_{config}"), "--sh", "0", "--config", config,
+            "--device", "cuda"])
+        counts.append(read_counts())
+        mesh_counts(f"gs-extract-pcd --config {config} mini_scene", counts[-1], forward, "pcd")
+        xyz, _, normals = fetch_ply(fused)
+        verts, faces = load_mesh(mesh)
+        say("pcd", f"gs-extract-pcd --config {config} mini_scene: {len(xyz)} points, SAP mesh "
+            f"{len(verts)} vertices, {len(faces)} faces")
+        check(len(xyz) > 100 and len(faces) > 100 and np.isfinite(normals).all(),
+              f"{config}: {len(xyz)} points, {len(faces)} faces")
+        compare_pcd_backends(config, device, card)
+    return counts
+
+
+def pcd_full(out_dir: str, device, card: str) -> dict:
+    """gs-extract-pcd with its defaults (every view at full size, SAP at grid
+    128) on phase 11's 300k sphere from its 36 cameras at 1920x1080: the
+    wall, peak device memory, busy share, the sphere's checks, and a staged
+    run with per-stage times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaustudio_torch import renderers
+    from gaustudio_torch.datasets.utils import getNerfppNorm
+    from gaustudio_torch.models.sap import ShapeAsPoints
+    from gaustudio_torch.ops import dpsr
+    from gaustudio_torch.pipelines import pcd_extraction as P
+    from gaustudio_torch.scripts import extract_pcd as gs_extract_pcd
+    from gaustudio_torch.utils.mesh import load_mesh
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    ply = os.path.join(out_dir, "mesh_full_scene.ply")
+    cams_path = os.path.join(out_dir, "mesh_full_cameras.json")
+    argv = ["-m", ply, "-c", cams_path, "-o", os.path.join(out_dir, "pcd_full"), "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused, mesh = gs_extract_pcd.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    mesh_counts(f"gs-extract-pcd {MESH_FULL_N} Gaussians, {FULL_W}x{FULL_H}", counts, FORWARD,
+                "pcd")
+    xyz, _, normals = fetch_ply(fused)
+    verts, faces = load_mesh(mesh)
+    radial = float(((normals * xyz).sum(1) > 0).mean())
+    voxel = sap_voxel(xyz)
+    off = float(np.median(np.abs(np.linalg.norm(verts, axis=1) - 1.0)))
+    check(np.isfinite(xyz).all() and np.isfinite(normals).all(), "non-finite fused points")
+    check(radial >= 0.95, f"{radial:.4f} of the fused normals point outward")
+    check(len(faces) > 1000, f"the SAP mesh has {len(faces)} faces")
+    check(off < 2 * voxel, f"the SAP mesh lies {off:.4f} from the sphere (voxel {voxel:.4f})")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gs_extract_pcd.main(argv)
+        torch.cuda.synchronize()
+    busy = sum(float(getattr(ev, "self_device_time_total", None)
+                     or getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
+    check(busy > 0, "torch.profiler recorded no device time in gs-extract-pcd")
+
+    # the same pipeline, stage by stage, each fenced by synchronize
+    pcd = load_model(ply, 0, device)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    cams = load_cameras(cams_path, device)
+    radius = getNerfppNorm(cams)["radius"]
+    timed = set(range(0, len(cams), STAGED_STRIDE))
+    stage_dir = os.path.join(out_dir, "pcd_full_stages")
+    for sub in ("images", "normals", "masks"):
+        os.makedirs(os.path.join(stage_dir, sub), exist_ok=True)
+    per_view = {"render": [], "filter + normals": [], "files": []}
+    samples = []
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for i, cam in enumerate(cams):
+        t0 = clock()
+        out = renderer.render(cam, pcd)
+        t1 = clock()
+        s = P.surface_samples(out, cam, radius)
+        t2 = clock()
+        samples.append(s)
+        if i not in timed:  # every view's samples, the files of every STAGED_STRIDE-th
+            continue
+        P._save_view_files(stage_dir, cam.image_name, cam, out["render"].permute(1, 2, 0).cpu().numpy(),
+                           s["cam_normals"].cpu().numpy(), s["fg"].cpu().numpy())
+        t3 = clock()
+        for key, dt in zip(per_view, (t1 - t0, t2 - t1, t3 - t2)):
+            per_view[key].append(dt * 1e3)
+    stages = {}
+    t0 = clock()
+    ids, mean_normals = P.vote_normals(pcd._xyz, [s["ids"] for s in samples],
+                                       [s["normals"] for s in samples],
+                                       [s["conf"] for s in samples], cams)
+    surf_xyz, mean_normals = pcd._xyz[ids].cpu().numpy(), mean_normals.cpu().numpy()
+    t1 = clock()
+    smoothed = P.smooth_normals(surf_xyz, mean_normals)
+    t2 = clock()
+    cleaned = P.clean_point_cloud(surf_xyz, P.surface_colors(pcd, ids), smoothed)
+    t3 = clock()
+    sap = ShapeAsPoints.from_pointcloud(cleaned[0], cleaned[2], {"grid_res": PCD_GRID},
+                                        device=device)
+    grid = sap.psr_grid()
+    t4 = clock()
+    _, sap_faces, _ = dpsr.mc_from_psr(grid)
+    t5 = clock()
+    for key, a, b in (("fusion", t0, t1), ("kNN smoothing", t1, t2), ("cleaning", t2, t3),
+                      ("DPSR solve", t3, t4), ("marching", t4, t5)):
+        stages[key] = b - a
+    # float atomics (index_add_) sum in another order each run: the counts may
+    # part by a hair
+    check(len(cleaned[0]) == len(xyz) and abs(len(sap_faces) - len(faces)) <= 1e-3 * len(faces),
+          f"the staged run's cloud or mesh differs from gs-extract-pcd's: {len(cleaned[0])} / "
+          f"{len(xyz)} points, {len(sap_faces)} / {len(faces)} faces")
+
+    med = {k: statistics.median(v) for k, v in per_view.items()}
+    say("pcd", f"full width: {len(cams)} views at {FULL_W}x{FULL_H}, {MESH_FULL_N} Gaussians: "
+        f"{len(ids)} points before cleaning, {len(xyz)} after; SAP grid {PCD_GRID}^3 (voxel "
+        f"{voxel:.5f}): {len(verts)} vertices, {len(faces)} faces; {radial:.4f} of the normals "
+        f"point outward (floor 0.95); median |r - 1| of the vertices {off:.5f} (ceiling "
+        f"{2 * voxel:.5f}) | {card}")
+    say("pcd", f"full width: gs-extract-pcd {wall:.3f} s wall (load, render, filter, fuse, "
+        f"clean, mesh, files), peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated), device busy {busy:.3f} s of the profiled run, busy "
+        f"share {busy / wall:.4f} of the unprofiled wall (torch.profiler) | {card}")
+    say("pcd", "full width by stage (host clock fenced by synchronize; median of "
+        f"{len(timed)} views, ms a view): render {med['render']:.3f}, filter + normals "
+        f"{med['filter + normals']:.3f}, file writes {med['files']:.3f}; seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" | {card}")
+    return counts
+
+
+def screen64(verts: torch.Tensor, cam) -> tuple:
+    """float64 pixel positions (x, y) and view z of ``verts`` in ``cam``."""
+    v = verts.double()
+    v1 = torch.cat([v, torch.ones_like(v[:, :1])], 1)
+    hom = v1 @ cam.full_proj_transform.to(v).double()
+    ndc = hom[:, :3] / (hom[:, 3:4] + 1e-9)
+    W, H = int(cam.image_width), int(cam.image_height)
+    return (((ndc[:, 0] + 1) * W - 1) / 2, ((ndc[:, 1] + 1) * H - 1) / 2,
+            (v1 @ cam.world_view_transform.to(v).double())[:, 2])
+
+
+def raster_reference(verts: torch.Tensor, faces: torch.Tensor, cam, pixels) -> tuple:
+    """A plain reference of rasterize_mesh in float64, one pixel at a time:
+    every front triangle's edge functions at the pixel centre, the least
+    perspective-correct depth and the smallest triangle id within (1 + 1e-6)
+    of it. Returns per pixel (depth, id, -1 where empty) and the depth each
+    triangle has there (inf where it misses), as a list."""
+    x, y, z = screen64(verts, cam)
+    f = faces.long()
+    xs, ys, zs = x[f], y[f], z[f]  # [F, 3]
+    front = (zs > 1e-3).all(1)
+    depths, ids, per_tri = [], [], []
+    for px, py in pixels:
+        # E(p) = dy * (px - ax) - dx * (py - ay) over the edges (1, 2), (2, 0), (0, 1)
+        e = torch.stack([(ys[:, b] - ys[:, a]) * (px - xs[:, a]) - (xs[:, b] - xs[:, a])
+                         * (py - ys[:, a]) for a, b in ((1, 2), (2, 0), (0, 1))], 1)
+        area = e.sum(1)
+        inside = ((e >= 0).all(1) | (e <= 0).all(1)) & (area.abs() > 1e-12) & front
+        lam = e / torch.where(area.abs() > 1e-12, area, 1.0)[:, None]
+        d = 1.0 / torch.clamp_min((lam / zs).sum(1), 1e-9)
+        d = torch.where(inside & (d > 1e-3), d, torch.inf)
+        zmin = d.min()
+        win = torch.nonzero(d <= zmin * (1 + 1e-6)).flatten()
+        depths.append(float(zmin) if torch.isfinite(zmin) else 0.0)
+        ids.append(int(win.min()) if torch.isfinite(zmin) else -1)
+        per_tri.append(d)
+    return np.array(depths), np.array(ids), per_tri
+
+
+def raster_pixels(frag, n: int, seed: int) -> np.ndarray:
+    """n seeded pixels (x, y) of ``frag``'s view: RASTER_EMPTY_PIXELS drawn
+    over the whole view, the rest from its coverage grown by
+    RASTER_GROW_PX pixels, where a pixel the float64 reference covers and
+    the device does not would lie."""
+    rng = np.random.default_rng(seed)
+    H, W = frag.mask.shape
+    n_any = min(RASTER_EMPTY_PIXELS, n)
+    k = 2 * RASTER_GROW_PX + 1
+    grown = torch.nn.functional.max_pool2d(frag.mask[None, None].float(), k, 1, RASTER_GROW_PX)
+    near = torch.nonzero(grown[0, 0] > 0).cpu().numpy()[:, ::-1]
+    anywhere = np.stack([rng.integers(0, W, n_any), rng.integers(0, H, n_any)], 1)
+    if not len(near):
+        return np.stack([rng.integers(0, W, n), rng.integers(0, H, n)], 1)
+    return np.concatenate([near[rng.choice(len(near), n - n_any, replace=len(near) < n - n_any)],
+                           anywhere])
+
+
+def bary_bound(verts, faces, cam, tri: np.ndarray, pix: np.ndarray) -> tuple:
+    """The float64 barycentrics [n, 3] of triangles ``tri`` at pixels ``pix``
+    (rasterize_mesh's l0, l1, 1 - l0 - l1: edges (1, 2), (2, 0), (0, 1)) and
+    a first-order bound [n, 3] on the float32 rasterizer's error in them:
+    the screen corners' float32 rounding (measured, the corners projected as
+    rasterize_mesh projects them) times the edge function's slope, plus 4
+    roundings of each product and sum of its terms, carried through the
+    division by the area."""
+    from gaustudio_torch.ops.gaussian import ndc2pix, transform_points
+
+    W, H = int(cam.image_width), int(cam.image_height)
+    sx, sy, _ = (c.cpu().numpy() for c in screen64(verts, cam))
+    hom = transform_points(verts.float(), cam.full_proj_transform.float())
+    ndc = hom[:, :3] / (hom[:, 3:4] + 1e-9)
+    fx, fy = ndc2pix(ndc[:, 0], W).cpu().numpy(), ndc2pix(ndc[:, 1], H).cpu().numpy()
+    f = faces.long().cpu().numpy()[tri]
+    dv = np.maximum(np.abs(fx[f] - sx[f]), np.abs(fy[f] - sy[f])).max(1)  # [n]
+    px, py = pix[:, 0].astype(np.float64), pix[:, 1].astype(np.float64)
+    u = 2.0 ** -24
+    e, de = [], []
+    for a, b in ((1, 2), (2, 0), (0, 1)):
+        ax, ay, bx, by = sx[f[:, a]], sy[f[:, a]], sx[f[:, b]], sy[f[:, b]]
+        dx, dy = bx - ax, by - ay
+        e.append(dy * (px - ax) - dx * (py - ay))
+        slope = np.abs(py - by) + np.abs(bx - px) + np.abs(py - ay) + np.abs(px - ax)
+        terms = np.abs(dy * px) + np.abs(dx * py) + np.abs(dy * ax) + np.abs(dx * ay)
+        de.append(dv * slope + 4 * u * terms)
+    e, de = np.stack(e, 1), np.stack(de, 1)
+    area = e.sum(1, keepdims=True)
+    lam = e / area
+    d_area = de.sum(1, keepdims=True) + u * np.abs(area)
+    bound = (de + np.abs(lam) * d_area) / np.abs(area) + u * np.abs(lam)
+    bound[:, 2] = bound[:, 0] + bound[:, 1] + u
+    return lam, bound
+
+
+def check_raster(frag, verts, faces, cam, n: int = RASTER_CHECK_PIXELS, seed: int = 0) -> str:
+    """Holds ``frag`` on n seeded pixels (raster_pixels) to raster_reference:
+    covered alike, depth within 1e-5 relative, the same triangle except at a
+    tie (the device's triangle within 1e-5 of the least depth there, or the
+    pixel within 1e-3 px of a triangle's edge, where the float32 and float64
+    inside tests may part), and the device triangle's barycentrics within
+    twice bary_bound's bound of their float64 values (a triangle of a pixel
+    or two at 1080p rounds them by ~1e-3 in float32)."""
+    W, H = int(cam.image_width), int(cam.image_height)
+    pix = raster_pixels(frag, n, seed)
+    ref_d, ref_id, per_tri = raster_reference(verts, faces, cam, [(float(x), float(y))
+                                                                   for x, y in pix])
+    got_d = frag.depth[pix[:, 1], pix[:, 0]].cpu().numpy()
+    got_id = frag.tri_id[pix[:, 1], pix[:, 0]].cpu().numpy()
+    sx, sy, _ = (c.cpu().numpy() for c in screen64(verts, cam))
+    ties = mismatched = 0
+    rel = 0.0
+    for i in range(n):
+        both = ref_id[i] >= 0 and got_id[i] >= 0
+        if both:
+            rel = max(rel, abs(got_d[i] - ref_d[i]) / ref_d[i])
+        if ref_id[i] == got_id[i]:
+            continue
+        tie = both and float(per_tri[i][got_id[i]]) <= ref_d[i] * (1 + 1e-5)
+        for t in (t for t in (ref_id[i], got_id[i]) if t >= 0):
+            corners = np.stack([sx, sy], 1)[faces[t].long().cpu().numpy()]
+            tie |= any(_segment_distance(pix[i], corners[a], corners[b]) < 1e-3
+                       for a, b in ((0, 1), (1, 2), (2, 0)))
+        ties += int(tie)
+        mismatched += int(not tie)
+    check(mismatched == 0, f"{mismatched} of {n} pixels take another triangle than the reference")
+    check(rel <= 1e-5, f"mesh depth differs from the reference by {rel:.3e} relative")
+    hit = got_id >= 0
+    check(int(hit.sum()) >= n // 2, f"only {int(hit.sum())} of {n} pixels are covered")
+    lam, bound = bary_bound(verts, faces, cam, got_id[hit], pix[hit])
+    err = np.abs(frag.bary[pix[hit, 1], pix[hit, 0]].double().cpu().numpy() - lam)
+    ratio = float((err / (2 * bound)).max())
+    check(ratio <= 1.0, f"barycentrics differ from the reference by {ratio:.3f}x their bound")
+    return (f"{n} pixels ({int(hit.sum())} covered, {int((ref_id >= 0).sum())} by the reference): "
+            f"depth max rel err {rel:.3e} (tol 1e-5), {ties} ties, ids otherwise equal; "
+            f"barycentrics max|err| {float(err.max()):.3e}, at most {ratio:.3f}x twice their "
+            f"float32 bound (bound median {float(np.median(bound)):.2e}, max "
+            f"{float(bound.max()):.2e})")
+
+
+def _segment_distance(p, a, b) -> float:
+    d = b - a
+    u = np.clip(np.dot(p - a, d) / max(np.dot(d, d), 1e-24), 0, 1)
+    return float(np.linalg.norm(a + u * d - p))
+
+
+def write_texture_cameras(work_dir: str, cams_path: str, stride: int = MESH_FULL_STRIDE,
+                          downsample: int = MESH_FULL_DOWNSAMPLE) -> str:
+    """``work_dir``/cameras.json: the cameras of the views gs-extract-mesh
+    rendered into ``work_dir``/images (every ``stride``-th camera of
+    ``cams_path``, downsampled by ``downsample``), for gs-texture-mesh."""
+    from gaustudio_torch.datasets.utils import JSON_to_camera, camera_to_JSON
+
+    with open(cams_path) as f:
+        entries = json.load(f)[::stride]
+    cams = [JSON_to_camera(cj, device="cpu").downsample_scale(downsample) for cj in entries]
+    path = os.path.join(work_dir, "cameras.json")
+    with open(path, "w") as f:
+        json.dump([camera_to_JSON(i, cam) for i, cam in enumerate(cams)], f)
+    return path
+
+
+def mesh_tools(out_dir: str, device, card: str) -> list:
+    """gs-render-mesh on phase 11's full-width mesh from the 36 cameras at
+    1080p (timed by stage, the middle view held to raster_reference);
+    gs-texture-mesh from phase 11's 12 views at 960x540; gs-from-mesh -n 3
+    and gs-render of its Gaussians at 1080p through K1-K3, of phase 11's
+    mesh and of gs-extract-pcd's (pcd_full's) SAP mesh."""
+    from gaustudio_torch.ops import mesh_raster
+    from gaustudio_torch.scripts import render_mesh as gs_render_mesh
+    from gaustudio_torch.scripts import texture_mesh as gs_texture_mesh
+    from gaustudio_torch.utils.mesh import load_mesh
+
+    mesh = os.path.join(out_dir, "mesh_full", "fused_mesh.ply")
+    cams_path = os.path.join(out_dir, "mesh_full_cameras.json")
+    render_dir = os.path.join(out_dir, "render_mesh")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs_render_mesh.main(["-m", mesh, "-c", cams_path, "-o", render_dir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    for sub in ("depth", "normal"):
+        check(len(os.listdir(os.path.join(render_dir, sub))) == MESH_FULL_CAMS, f"{sub} files")
+
+    v_np, f_np = load_mesh(mesh)
+    verts = torch.from_numpy(v_np).to(device)
+    faces = torch.from_numpy(f_np.astype(np.int64)).to(device)
+    fnormals = mesh_raster.face_normals(verts, faces)
+    cams = load_cameras(cams_path, device)
+    stage_dir = os.path.join(out_dir, "render_mesh_stages")
+    for sub in ("color", "depth", "normal"):
+        os.makedirs(os.path.join(stage_dir, sub), exist_ok=True)
+    ras_ms, file_ms, covered = [], [], []
+    for cam in cams[::STAGED_STRIDE]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frag = mesh_raster.rasterize_mesh(verts, faces, cam.world_view_transform,
+                                          cam.full_proj_transform, FULL_W, FULL_H)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gs_render_mesh.save_view(stage_dir, cam.image_name, cam,
+                                 gs_render_mesh.view_images(frag, fnormals, faces))
+        t2 = time.perf_counter()
+        ras_ms.append((t1 - t0) * 1e3)
+        file_ms.append((t2 - t1) * 1e3)
+        covered.append(float(frag.mask.float().mean()))
+    middle = cams[len(cams) // 2]
+    frag = mesh_raster.rasterize_mesh(verts, faces, middle.world_view_transform,
+                                      middle.full_proj_transform, FULL_W, FULL_H)
+    check(torch.isfinite(frag.depth).all() and torch.isfinite(frag.bary).all(), "non-finite frags")
+    held = check_raster(frag, verts, faces, middle)
+    say("meshtools", f"gs-render-mesh {len(f_np)} faces, {len(cams)} views at {FULL_W}x{FULL_H}: "
+        f"{wall:.3f} s wall; covered fraction {statistics.mean(covered):.4f} (mean of the timed "
+        f"views); by stage (host clock fenced by synchronize, median of {len(ras_ms)} views, ms a "
+        f"view): rasterize "
+        f"{statistics.median(ras_ms):.3f}, files {statistics.median(file_ms):.3f}; middle view "
+        f"against raster_reference: {held} | {card}")
+    # phase 11's mesh has holes where its views' final opacity is below 0.5
+    # (the middle of the sphere's disc): it covers about 0.18 of a view
+    check(min(covered) > 0.1, f"a mesh view is mostly empty: {min(covered):.3f}")
+
+    tex_cams = write_texture_cameras(os.path.join(out_dir, "mesh_full"), cams_path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, share = gs_texture_mesh.main(["-m", mesh, "-c", tex_cams, "-o",
+                                     os.path.join(out_dir, "textured_mesh.ply"), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    say("meshtools", f"gs-texture-mesh from {MESH_FULL_CAMS // MESH_FULL_STRIDE} views at "
+        f"{FULL_W // MESH_FULL_DOWNSAMPLE}x{FULL_H // MESH_FULL_DOWNSAMPLE}: {share:.4f} of "
+        f"{len(v_np)} vertices covered (floor 0.8), {wall:.3f} s wall | {card}")
+    check(share > 0.8, f"gs-texture-mesh covered {share:.4f} of the vertices")
+
+    # gs-from-mesh on phase 11's mesh, whose holes bound what its Gaussians
+    # can light (at least 0.9 of the mesh's own coverage of the view), and on
+    # gs-extract-pcd's SAP mesh, a closed sphere (more than half the view)
+    counts, lit, cover = from_mesh_render(mesh, "phase 11's mesh", out_dir, device, card)
+    check(lit >= 0.9 * cover, f"gs-from-mesh's render lights {lit:.4f} of a view the mesh covers "
+          f"{cover:.4f} of")
+    sap_counts, lit, _ = from_mesh_render(os.path.join(out_dir, "pcd_full", "fused_mesh.ply"),
+                                          "gs-extract-pcd's SAP mesh", out_dir, device, card)
+    check(lit > 0.5, f"gs-from-mesh's render of the SAP mesh is mostly empty: {lit:.4f} lit")
+    return [counts, sap_counts]
+
+
+def from_mesh_render(mesh: str, tag: str, out_dir: str, device, card: str) -> tuple:
+    """gs-from-mesh -n 3 of ``mesh``, then gs-render of its Gaussians from
+    FROM_MESH_VIEWS orbit views at 1080p (radius FROM_MESH_RADIUS) through
+    K1-K3, with the launches, and the middle view timed warm through
+    rasterize(). Returns (launch counts, lit fraction, the fraction of that
+    view the mesh itself covers)."""
+    from gaustudio_torch import models, renderers
+    from gaustudio_torch.ops import mesh_raster
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.scripts import mesh2gs as gs_from_mesh
+    from gaustudio_torch.scripts import render as gs_render
+    from gaustudio_torch.utils.mesh import load_mesh
+
+    name = os.path.basename(os.path.dirname(mesh))
+    gs_ply = os.path.join(out_dir, f"from_mesh_{name}.ply")
+    t0 = time.perf_counter()
+    gs_from_mesh.main(["-m", mesh, "-o", gs_ply, "-n", "3", "--device", "cuda"])
+    from_wall = time.perf_counter() - t0
+    views = write_orbit_cameras(os.path.join(out_dir, "from_mesh_cameras.json"), FROM_MESH_VIEWS,
+                                FULL_W, FULL_H, radius=FROM_MESH_RADIUS)
+    reset_counts()
+    images = gs_render.main(["-m", gs_ply, "-s", views, "--sh", "1", "--device", "cuda", "-o",
+                             os.path.join(out_dir, f"from_mesh_render_{name}"),
+                             "model.pointcloud.sh_degree=1"])
+    counts = read_counts()
+    mesh_counts(f"gs-render of gs-from-mesh's Gaussians ({tag}), {FULL_W}x{FULL_H}", counts,
+                FORWARD, "meshtools")
+    check(len(os.listdir(images)) == FROM_MESH_VIEWS, os.listdir(images))
+
+    v_np, f_np = load_mesh(mesh)
+    pcd = models.make({"name": "vanilla_pcd", "sh_degree": 1}, device=device)
+    pcd.load(gs_ply)
+    pcd.active_sh_degree = 1
+    check(pcd.num_points == 3 * len(f_np), f"{pcd.num_points} Gaussians for {len(f_np)} faces")
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    cam = load_cameras(views, device)[FROM_MESH_VIEWS // 2]
+    cover = float(mesh_raster.rasterize_mesh(
+        torch.from_numpy(v_np).to(device), torch.from_numpy(f_np.astype(np.int64)).to(device),
+        cam.world_view_transform, cam.full_proj_transform, FULL_W, FULL_H).mask.float().mean())
+    with torch.inference_mode():
+        xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
+        st = renderer.make_settings(cam, pcd, device)
+
+        def run():
+            return rast.rasterize(xyz, opacity, st, shs=shs, scales=scales, rotations=rotations,
+                                  active_sh_degree=1)
+
+        out = run()
+        finite = all(bool(torch.isfinite(out[k]).all()) for k in (
+            "render", "rendered_depth", "rendered_median_depth", "rendered_final_opacity"))
+        lit = float((out["render"].sum(0) > 0).float().mean())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        torch.cuda.synchronize()
+        ras_s = (time.perf_counter() - t0) / 20
+    say("meshtools", f"gs-from-mesh -n 3 ({tag}): {pcd.num_points} Gaussians from {len(f_np)} "
+        f"faces in {from_wall:.3f} s; gs-render at {FULL_W}x{FULL_H} (orbit radius "
+        f"{FROM_MESH_RADIUS}): {out['num_rendered']} entries, lit fraction {lit:.4f} (the mesh "
+        f"covers {cover:.4f} of the view), outputs finite {finite}; rasterize() "
+        f"{ras_s * 1e3:.3f} ms wall (mean of 20 warm calls) | {card}")
+    check(finite, "gs-from-mesh's render has non-finite outputs")
+    return counts, lit, cover
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -2195,6 +2841,19 @@ def ab_kernels(parent: str, card: str) -> None:
         after = statistics.mean(t for r in (runs[1], runs[2]) for t in r[name])
         say("ab", f"{name}: parent {before:.4f} {unit}, this checkout {after:.4f} {unit}, ratio "
             f"{after / before:.4f} (means of 2 x 3 windows of 20 calls) | {card}")
+
+
+def kernels_report(path_counts: list, errs: dict, times: dict, bounds: dict) -> dict:
+    """The {"kernels": [...]} line: each kernel's launches summed over the
+    main paths' counts, with its error, times and bound."""
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": sum(c[name] for c in path_counts), "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1],
+         "library_ms": times[name][2] if len(times[name]) > 2 else None}
+        for name, (src, replaces) in KERNELS.items()
+    ]}
 
 
 def main(argv=None) -> int:
@@ -2346,14 +3005,14 @@ def main(argv=None) -> int:
     # and Scaffold-GS training
     path_counts.extend(variants(args.out, ply, cams_path, device, card))
 
-    report = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": sum(c[name] for c in path_counts), "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1],
-         "library_ms": times[name][2] if len(times[name]) > 2 else None}
-        for name, (src, replaces) in KERNELS.items()
-    ]}
+    # phase 13: point extraction and the mesh tools (gs-extract-pcd on the
+    # fixture and at full width; gs-render-mesh, gs-texture-mesh and
+    # gs-from-mesh on phase 11's full-width mesh)
+    path_counts.extend(pcd_fixture(args.out, device, card))
+    path_counts.append(pcd_full(args.out, device, card))
+    path_counts.extend(mesh_tools(args.out, device, card))
+
+    report = kernels_report(path_counts, errs, times, bounds)
     check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Models registry (port of gaustudio_tpu/models/__init__.py; sap comes with slice 6)."""
+"""Models registry (port of gaustudio_tpu/models/__init__.py)."""
 
 from gaustudio_torch.registry import Registry
 
@@ -6,4 +6,4 @@ _registry = Registry("models")
 register = _registry.register
 make = _registry.make
 
-from gaustudio_torch.models import vanilla, general, mip, scaffold  # noqa: E402,F401
+from gaustudio_torch.models import vanilla, general, mip, scaffold, sap  # noqa: E402,F401

@@ -1,2 +1,2 @@
-"""Pipelines (port of gaustudio_tpu/pipelines): the vanilla and 2DGS trainers and mesh
-extraction."""
+"""Pipelines (port of gaustudio_tpu/pipelines): the vanilla, 2DGS and Scaffold trainers,
+mesh and point extraction, and the mesh initializers."""

@@ -11,7 +11,6 @@ belongs to a later slice.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -20,10 +19,8 @@ import torch
 from gaustudio_torch.cameras import Camera
 from gaustudio_torch.ops import mcubes, tsdf
 from gaustudio_torch.utils import mesh as meshu
-from gaustudio_torch.utils.image import save_image
+from gaustudio_torch.utils.image import BackgroundWriter, save_image
 from gaustudio_torch.utils.misc import resolve_device
-
-MAX_PENDING_WRITES = 8  # views whose files may wait for the writer threads
 
 
 def write_cam_file(path: str, camera: Camera) -> None:
@@ -60,32 +57,20 @@ def _save_view_files(work_dir, name, camera, inv_np, rgb_np):
 def iter_fused_depths(renderer, pcd, cameras: List[Camera], work_dir=None):
     """Yield each view's (camera, depth map on the render's device): the
     median depth, zeroed where the final opacity is below 0.5, and, with
-    ``work_dir``, write the view's files on two writer threads, with at most
-    MAX_PENDING_WRITES views waiting."""
+    ``work_dir``, write the view's files on a BackgroundWriter."""
     if work_dir is not None:
         os.makedirs(os.path.join(work_dir, "images"), exist_ok=True)
         os.makedirs(os.path.join(work_dir, "masks"), exist_ok=True)
-    pool = ThreadPoolExecutor(max_workers=2) if work_dir is not None else None
-    pending = []
-    try:
+    with BackgroundWriter() as writer:
         for i, camera in enumerate(cameras):
             out = renderer.render(camera, pcd)
             invalid = out["rendered_final_opacity"][0] < 0.5
             depth = torch.where(invalid, 0.0, out["rendered_median_depth"][0])
             if work_dir is not None:
-                inv_np = invalid.cpu().numpy()
-                rgb_np = out["render"].permute(1, 2, 0).cpu().numpy()
-                name = camera.image_name or f"view_{i:04d}"
-                if len(pending) >= MAX_PENDING_WRITES:
-                    pending.pop(0).result()
-                pending.append(pool.submit(
-                    _save_view_files, work_dir, name, camera, inv_np, rgb_np))
+                writer.submit(_save_view_files, work_dir, camera.image_name or f"view_{i:04d}",
+                              camera, invalid.cpu().numpy(),
+                              out["render"].permute(1, 2, 0).cpu().numpy())
             yield camera, depth
-    finally:
-        if pool is not None:
-            for f in pending:
-                f.result()
-            pool.shutdown()
 
 
 def render_fused_depths(renderer, pcd, cameras: List[Camera], work_dir=None):

@@ -22,7 +22,8 @@ import torch
 def _device(args) -> torch.device:
     if args.device == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: no CUDA device is available (use --device cpu)")
+            raise RuntimeError('--device cuda: no CUDA device is available (use --device cpu; '
+                               'device="cpu" in Python)')
         device = torch.device(f"cuda:{int(args.gpu)}")
         torch.cuda.set_device(device)  # the kernels launch on the current device
         return device

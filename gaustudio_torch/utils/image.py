@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -217,3 +218,33 @@ def load_samples(path: str) -> np.ndarray:
         return raw if depth == 8 else raw.view(">u2").astype(np.uint16)
     with Image.open(path) as img:
         return np.asarray(img)
+
+
+WRITER_THREADS = 2
+MAX_PENDING_WRITES = 8
+
+
+class BackgroundWriter:
+    """Runs file writes on WRITER_THREADS threads beside the caller's next
+    device work (zlib and file IO release the interpreter lock), with at
+    most MAX_PENDING_WRITES writes waiting. Leaving the ``with`` block waits
+    for every write and raises the first one's error."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=WRITER_THREADS)
+        self._pending = []
+
+    def submit(self, fn, *args) -> None:
+        if len(self._pending) >= MAX_PENDING_WRITES:
+            self._pending.pop(0).result()
+        self._pending.append(self._pool.submit(fn, *args))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            for f in self._pending:
+                f.result()
+        finally:
+            self._pool.shutdown()

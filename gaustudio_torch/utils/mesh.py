@@ -38,6 +38,16 @@ def load_mesh(path: str) -> Tuple[np.ndarray, np.ndarray]:
     return verts, faces
 
 
+def vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Unit vertex normals: the sum of the adjacent faces' cross products."""
+    v0, v1, v2 = (vertices[faces[:, i]] for i in range(3))
+    fn = np.cross(v1 - v0, v2 - v0)
+    vn = np.zeros_like(vertices)
+    for i in range(3):
+        np.add.at(vn, faces[:, i], fn)
+    return vn / np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
+
+
 def sample_mesh_surface(vertices, faces, n_samples: int, seed: int = 0) -> np.ndarray:
     """Area-weighted uniform surface samples [n_samples, 3]."""
     v = np.asarray(vertices, np.float64)

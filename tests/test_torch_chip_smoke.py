@@ -1,9 +1,11 @@
 """What chip_smoke.py builds on the host, checked on the CPU: its copy of
 bench.make_scene, its imports, the hard cases of phase 3 (through the plain
-versions, which the kernels are held to on the card), K2's cases, and phase
-11's scene and cameras against bench_all.py's."""
+versions, which the kernels are held to on the card), K2's cases, phase
+11's scene and cameras against bench_all.py's, phase 13's pure helpers and
+the kernels line's launch sum."""
 
 import ast
+import inspect
 import json
 import os
 
@@ -156,3 +158,165 @@ def test_phase12_scaffold_generator_holds_its_widths_and_seeds():
     assert set(pcd.mlp) == {"opacity", "cov", "color"}
     assert chip_smoke.SCAFFOLD_FIXTURE_GATE_DB == pytest.approx(
         chip_smoke.SCAFFOLD_JAX_GAIN_DB - 1.0)
+
+
+def test_phase13_texture_cameras_are_the_views_gs_extract_mesh_wrote(tmp_path):
+    """The cameras.json phase 13 writes beside phase 11's images/ names
+    every view the extraction rendered (its CLI's default stride and
+    downsample) at the size of its PNG, with its pose and focal length."""
+    from gaustudio_torch.datasets.utils import JSON_to_camera
+    from gaustudio_torch.scripts import extract_mesh
+    from gaustudio_torch.utils.image import read_png
+
+    ply = str(tmp_path / "sphere.ply")
+    chip_smoke.sphere_model(2000, CPU).export(ply)
+    cams_path = chip_smoke.write_orbit_cameras(str(tmp_path / "cams.json"), 9, 64, 36)
+    work = tmp_path / "mesh"
+    extract_mesh.main(["-m", ply, "-s", cams_path, "-o", str(work), "--voxel_size", "0.1",
+                       "--device", "cpu"])
+    path = chip_smoke.write_texture_cameras(str(work), cams_path)
+    assert path == str(work / "cameras.json")
+    with open(path) as f:
+        entries = json.load(f)
+    pngs = sorted(n for n in os.listdir(work / "images") if n.endswith(".png"))
+    assert sorted(f"{cj['img_name']}.png" for cj in entries) == pngs and len(pngs) == 3
+    with open(cams_path) as f:
+        full = [JSON_to_camera(cj, device="cpu") for cj in json.load(f)]
+    for cj, ref in zip(entries, full[::chip_smoke.MESH_FULL_STRIDE]):
+        assert read_png(str(work / "images" / f"{cj['img_name']}.png")).shape[:2] == (
+            cj["height"], cj["width"]) == (18, 32)
+        cam = JSON_to_camera(cj, device="cpu")
+        np.testing.assert_allclose(cam.extrinsics.numpy(), ref.extrinsics.numpy(), atol=1e-6)
+        np.testing.assert_allclose(cam.intrinsics.numpy()[:2, :2],
+                                   ref.intrinsics.numpy()[:2, :2] / 2, rtol=1e-6)
+
+
+def test_phase13_sap_f1_reuses_phase11s_f1_at_half_a_sap_voxel(monkeypatch):
+    from gaustudio_torch.models.sap import ShapeAsPoints
+    from gaustudio_torch.utils import mesh as meshu
+
+    rng = np.random.default_rng(0)
+    xyz = rng.normal(size=(500, 3)).astype(np.float32)
+    sap = ShapeAsPoints.from_pointcloud(xyz, xyz, device="cpu")
+    assert chip_smoke.sap_voxel(xyz) == pytest.approx(sap._scale_factor / chip_smoke.PCD_GRID)
+    seen = {}
+
+    def f1(*args, tau, n_samples):
+        seen.update(tau=tau, n_samples=n_samples)
+        return {"f1": 1.0}
+
+    monkeypatch.setattr(meshu, "mesh_f1_score", f1)
+    mesh = (xyz[:3], np.array([[0, 1, 2]]))
+    assert chip_smoke.sap_f1(mesh, mesh, xyz)["f1"] == 1.0
+    assert seen == {"tau": 0.5 * chip_smoke.sap_voxel(xyz),
+                    "n_samples": chip_smoke.MESH_F1_SAMPLES}
+
+
+def test_phase13_raster_reference_holds_the_rasterizer():
+    """raster_reference agrees with rasterize_mesh on a seeded mesh, and
+    check_raster fails a fragment whose depth moved by 1e-4."""
+    from gaustudio_torch.cameras import Camera
+    from gaustudio_torch.ops import mesh_raster
+
+    rng = np.random.default_rng(1)
+    verts = torch.from_numpy(((rng.uniform(-1, 1, (150, 1, 3)) * [1, 0.8, 0.8])
+                              + rng.normal(size=(150, 3, 3)) * 0.2).reshape(-1, 3).astype(np.float32))
+    faces = torch.arange(450).reshape(-1, 3)
+    cam = Camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), FoVx=1.0, FoVy=0.7, image_width=50,
+                 image_height=30, device="cpu")
+    frag = mesh_raster.rasterize_mesh(verts, faces, cam.world_view_transform,
+                                      cam.full_proj_transform, 50, 30)
+    assert "0 ties" in chip_smoke.check_raster(frag, verts, faces, cam, n=120)
+    depth, ids, _ = chip_smoke.raster_reference(verts, faces, cam, [(25.0, 15.0), (0.0, 0.0)])
+    assert ids[0] == int(frag.tri_id[15, 25]) and depth[0] == pytest.approx(
+        float(frag.depth[15, 25]), rel=1e-5)
+    with pytest.raises(RuntimeError, match="relative"):
+        chip_smoke.check_raster(frag._replace(depth=frag.depth * (1 + 1e-4)), verts, faces, cam,
+                                n=120)
+
+
+@pytest.mark.parametrize("moved", ["swapped", "shifted"])
+def test_phase13_check_raster_holds_the_barycentrics(moved):
+    """check_raster fails barycentrics that are swapped or shifted by 1e-3,
+    which their float32 bound on a 64x48 view does not cover."""
+    from gaustudio_torch.cameras import Camera
+    from gaustudio_torch.ops import mesh_raster
+
+    rng = np.random.default_rng(2)
+    verts = torch.from_numpy(((rng.uniform(-1, 1, (60, 1, 3)) * [1, 0.8, 0.8])
+                              + rng.normal(size=(60, 3, 3)) * 0.4).reshape(-1, 3).astype(np.float32))
+    faces = torch.arange(180).reshape(-1, 3)
+    cam = Camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), FoVx=1.0, FoVy=0.8, image_width=64,
+                 image_height=48, device="cpu")
+    frag = mesh_raster.rasterize_mesh(verts, faces, cam.world_view_transform,
+                                      cam.full_proj_transform, 64, 48)
+    lam, bound = chip_smoke.bary_bound(verts, faces, cam, np.array([int(frag.tri_id[24, 32])]),
+                                       np.array([[32, 24]]))
+    assert np.abs(frag.bary[24, 32].double().numpy() - lam[0]).max() <= 2 * bound.max() < 1e-3
+    bary = frag.bary[..., [1, 0, 2]] if moved == "swapped" else frag.bary + 1e-3
+    with pytest.raises(RuntimeError, match="barycentrics"):
+        chip_smoke.check_raster(frag._replace(bary=bary), verts, faces, cam, n=120)
+
+
+def test_phase13_revote_ties_name_the_samples_at_the_threshold(monkeypatch):
+    """A sample that the re-vote keeps on one path and drops on the other
+    marks its Gaussian, with its distances from the threshold on both paths;
+    a sample on the same side on both paths marks nothing."""
+    from gaustudio_torch.cameras import Camera
+
+    class Pcd:
+        _xyz = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+
+    cam = Camera(R=np.eye(3), T=np.array([0.0, 0.0, 3.0]), FoVx=1.0, FoVy=1.0, image_width=2,
+                 image_height=2, device="cpu")
+    up = [0.0, 0.0, 1.0]
+
+    def path(tilt):
+        return [{"valid": torch.tensor([[True, True], [True, False]]), "ids": torch.tensor([0, 1, 1]),
+                 "normals": torch.tensor([up, up, up]), "conf": torch.ones(3)},
+                {"valid": torch.tensor([[False, False], [False, True]]), "ids": torch.tensor([1]),
+                 "normals": torch.tensor([tilt]), "conf": torch.ones(1)}]
+
+    kern, plain = path([0.8, 0.0, 1.0]), path([0.8 + 1e-3, 0.0, 1.0])
+    d_k = float(chip_smoke.revote_distances(Pcd, kern, [cam, cam])[-1])
+    d_p = float(chip_smoke.revote_distances(Pcd, plain, [cam, cam])[-1])
+    assert d_k < d_p
+    monkeypatch.setattr(chip_smoke, "REVOTE_THRESHOLD", 0.5 * (d_k + d_p))
+    ids, rows, noise, dn = chip_smoke.revote_ties(Pcd, kern, plain, [cam, cam])
+    assert ids == {1} and len(rows) == 1 and rows[0][0] == 1
+    assert rows[0][1] < 0 < rows[0][2] and noise == pytest.approx(d_p - d_k)
+    assert dn == pytest.approx(1e-3, rel=1e-3)
+    monkeypatch.setattr(chip_smoke, "REVOTE_THRESHOLD", d_p + 1e-3)
+    assert chip_smoke.revote_ties(Pcd, kern, plain, [cam, cam])[:2] == (set(), [])
+
+
+def test_phase13_raster_pixels_lie_mostly_on_the_coverage():
+    """All but RASTER_EMPTY_PIXELS of the checked pixels lie within
+    RASTER_GROW_PX of a covered pixel."""
+    from gaustudio_torch.ops.mesh_raster import MeshFragments
+
+    mask = torch.zeros(90, 160, dtype=torch.bool)
+    mask[40:50, 70:80] = True
+    frag = MeshFragments(depth=mask.float(), tri_id=torch.where(mask, 0, -1),
+                         bary=torch.zeros(90, 160, 3), mask=mask)
+    pix = chip_smoke.raster_pixels(frag, 100, seed=0)
+    assert pix.shape == (100, 2)
+    g = chip_smoke.RASTER_GROW_PX
+    near = (pix[:, 0] >= 70 - g) & (pix[:, 0] < 80 + g) & (pix[:, 1] >= 40 - g) & (pix[:, 1] < 50 + g)
+    assert near[:100 - chip_smoke.RASTER_EMPTY_PIXELS].all()
+
+
+def test_kernels_line_sums_every_paths_launches_phase13s_too():
+    names = list(chip_smoke.KERNELS)
+    counts = [{k: 1 for k in names}, {k: 10 for k in names}, {k: 100 for k in names}]
+    report = chip_smoke.kernels_report(
+        counts, {k: 0.0 for k in names}, {k: (1.0, 2.0) for k in names},
+        {k: (0.5, "bytes") for k in names})
+    assert [k["name"] for k in report["kernels"]] == names and len(names) == 6
+    assert all(k["launches"] == 111 for k in report["kernels"])
+    assert all(k["library_ms"] is None for k in report["kernels"])
+    source = inspect.getsource(chip_smoke.main)
+    phase13 = ("path_counts.extend(pcd_fixture(", "path_counts.append(pcd_full(",
+               "path_counts.extend(mesh_tools(")
+    assert all(call in source for call in phase13)
+    assert max(source.index(c) for c in phase13) < source.index("kernels_report(path_counts")

@@ -21,10 +21,13 @@ from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
 from gaustudio_torch.datasets.utils import JSON_to_camera
 from gaustudio_torch.models.base import BasePointCloud
 from gaustudio_torch.models.mip import MipPointCloud
+from gaustudio_torch.models.sap import ShapeAsPoints
 from gaustudio_torch.models.scaffold import ScaffoldPointCloud
 from gaustudio_torch.models.vanilla import VanillaPointCloud
 from gaustudio_torch.ops import tsdf as t_tsdf
+from gaustudio_torch.pipelines import initializers
 from gaustudio_torch.pipelines import mesh_extraction as t_mesh_extraction
+from gaustudio_torch.pipelines import pcd_extraction as t_pcd_extraction
 from gaustudio_torch.pipelines import train as t_train
 from gaustudio_torch.pipelines import train_scaffold as t_train_scaffold
 from gaustudio_torch.pipelines import train_surfel as t_train_surfel
@@ -102,6 +105,46 @@ def _extract_mesh_volume(tmp, **kw):
     return grids
 
 
+def _oriented_points(n=200):
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+TETRAHEDRON = (np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32),
+               np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]]))
+
+
+def _mesh_sap_grid(tmp, **kw):
+    """mesh_sap's indicator grid, caught as it is solved."""
+    grids = []
+    solve = ShapeAsPoints.psr_grid
+
+    def spy(self):
+        grids.append(solve(self))
+        return grids[-1]
+
+    with mock.patch.object(ShapeAsPoints, "psr_grid", spy):
+        t_pcd_extraction.mesh_sap(_oriented_points(), _oriented_points(), grid_res=16, **kw)
+    return grids
+
+
+def _tsdf_initializer_volume(tmp, **kw):
+    """The TSDF grid the tsdf initializer fuses a host camera's depth into."""
+    grids = []
+    integrate = t_tsdf.integrate
+
+    def spy(vol, *args):
+        grids.append(vol.tsdf)
+        return integrate(vol, *args)
+
+    cam = _cpu_views()[0]
+    cam.depth = torch.full((6, 8), 3.0)
+    with mock.patch.object(t_tsdf, "integrate", spy):
+        initializers.make({"name": "tsdf"}, **kw).cache_dataset([cam])
+    return grids
+
+
 # entry point -> fn(tmp_path, **device kwargs) -> the tensors it made
 ENTRY_POINTS = {
     "renderers.make vanilla_renderer": lambda tmp, **kw: [
@@ -147,6 +190,13 @@ ENTRY_POINTS = {
     "TSDFVolume.from_numpy": lambda tmp, **kw: [t_tsdf.TSDFVolume.from_numpy(
         np.ones((2, 2, 2)), np.zeros((2, 2, 2)), np.zeros(3), 0.1, 0.4, **kw).origin],
     "extract_mesh": _extract_mesh_volume,
+    "models.make sap_pcd": lambda tmp, **kw: [models.make({"name": "sap_pcd"}, **kw)._xyz],
+    "ShapeAsPoints.from_pointcloud": lambda tmp, **kw: (lambda sap: [sap._xyz, sap._normal])(
+        ShapeAsPoints.from_pointcloud(_oriented_points(), _oriented_points(), **kw)),
+    "ShapeAsPoints.from_mesh": lambda tmp, **kw: [ShapeAsPoints.from_mesh(
+        *TETRAHEDRON, n_samples=50, **kw).unit_points],
+    "mesh_sap": _mesh_sap_grid,
+    "TsdfInitializer": _tsdf_initializer_volume,
 }
 
 
@@ -161,3 +211,23 @@ def test_entry_point_without_a_device_raises_where_there_is_no_card(name, tmp_pa
 def test_entry_point_with_the_cpu_named_puts_its_tensors_there(name, tmp_path):
     tensors = ENTRY_POINTS[name](tmp_path, device="cpu")
     assert tensors and all(t.device.type == "cpu" for t in tensors), name
+
+
+CLI_ARGV = {
+    "extract_pcd": ["-m", "model.ply"],
+    "render_mesh": ["-m", "mesh.ply", "-o", "out"],
+    "texture_mesh": ["-m", "mesh.ply", "-o", "out.ply"],
+    "mesh2gs": ["-m", "mesh.ply", "-o", "out.ply"],
+}
+
+
+@pytest.mark.parametrize("cli", list(CLI_ARGV))
+def test_cli_without_a_card_raises_unless_given_the_cpu(cli, monkeypatch):
+    """The CLIs of slice 6 default to --device cuda and refuse to run
+    without a card, naming the CPU route."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"gaustudio_torch.scripts.{cli}").main
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(CLI_ARGV[cli])
