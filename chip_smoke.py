@@ -96,13 +96,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    float64 per-pixel reference), gs-texture-mesh from phase 11's 12 views
    (covered share > 0.8) and gs-from-mesh -n 3 with gs-render of its
    Gaussians at 1080p through K1-K3 (launches, lit fraction, rasterize()
-   wall), also on gs-extract-pcd's closed SAP mesh (lit > 0.5).
+   wall), also on gs-extract-pcd's closed SAP mesh (lit > 0.5);
+14. gs-init and gs-process-data: phase 11's 300k sphere at opacity 0.95
+   rendered through K1-K3 from three orbit rings of 12 cameras (elevations
+   -30, 0 and +30 degrees, radius 3, 1920x1080, 60 degrees along the short
+   side) and written as a nerfstudio capture (RGB, 16-bit median depth in
+   millimetres, masks of final opacity > 0.5, a 20k-point
+   sparse/0/points3D.bin); then on --device cuda (a) gs-process-data --init
+   depth (its points: one a pixel of positive depth at 480x270, median
+   | |p| - 1 | <= 0.01), (b) gs-init -w --initializer VisualHull, its pose
+   step building from the capture's points3D.bin (no hull vertex more than
+   sqrt(3) voxels inside the sphere; a Gaussian a face), with the wall, busy
+   share and peak device memory of each, (c) gs-process-data --init
+   gaussiansky (100^2 Gaussians) and (d) 30 steps of gs-train --dataset
+   nerfstudio from (b)'s cloud through K1-K4 (ms/it; the loss of the last 5
+   steps below that of the first 5); whether PIL and cv2 import.
 
-Each path (phases 4, 5, 6, 8, 9, 11, 12 and 13) is driven with every launch
-count set to 0 just before it and read just after; a kernel of the path that
-was not launched fails the run. The report's ``launches`` sums the counts of
-the render, training, mesh, variant and point-extraction paths (phases 5, 6,
-8, 9, 11, 12 and 13). The last two lines are
+Each path (phases 4, 5, 6, 8, 9, 11, 12, 13 and 14) is driven with every
+launch count set to 0 just before it and read just after; a kernel of the
+path that was not launched fails the run. The report's ``launches`` sums the
+counts of the render, training, mesh, variant, point-extraction and
+initialization paths (phases 5, 6, 8, 9, 11, 12, 13 and 14). The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -504,6 +518,22 @@ def device_ms(fn, names=None, iters: int = 20) -> float:
     us = sum(t for key, t in device_us_by_op(fn, iters, names).items() if _named(key, names))
     check(us > 0, f"torch.profiler recorded no device time for the kernels {names}")
     return us / 1e3
+
+
+def profiled_device_s(fn) -> float:
+    """Device seconds (every kernel and copy torch.profiler records) of one
+    call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(float(getattr(ev, "self_device_time_total", None)
+                     or getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
+    check(busy > 0, "torch.profiler recorded no device time")
+    return busy
 
 
 def k1_breakdown(fn) -> tuple[float, str]:
@@ -1657,9 +1687,6 @@ def mesh_full(out_dir: str, device, card: str) -> dict:
     36 orbit cameras at 1920x1080 (12 views at 960x540): the wall, the peak
     device memory, the device's busy share, and a staged run of the same
     pipeline with per-stage times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gaustudio_torch import renderers
     from gaustudio_torch.ops import mcubes, tsdf
     from gaustudio_torch.pipelines import mesh_extraction as ME
@@ -1688,13 +1715,7 @@ def mesh_full(out_dir: str, device, card: str) -> dict:
     n_views = len(os.listdir(os.path.join(out_dir, "mesh_full", "masks")))
     check(n_views == MESH_FULL_CAMS // 3, f"{n_views} views written")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gs_extract_mesh.main(argv)
-        torch.cuda.synchronize()
-    busy = sum(float(getattr(ev, "self_device_time_total", None)
-                     or getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
-    check(busy > 0, "torch.profiler recorded no device time in the extraction")
+    busy = profiled_device_s(lambda: gs_extract_mesh.main(argv))
 
     # the same pipeline, stage by stage, each fenced by synchronize
     from gaustudio_torch import models
@@ -2324,9 +2345,6 @@ def pcd_full(out_dir: str, device, card: str) -> dict:
     128) on phase 11's 300k sphere from its 36 cameras at 1920x1080: the
     wall, peak device memory, busy share, the sphere's checks, and a staged
     run with per-stage times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gaustudio_torch import renderers
     from gaustudio_torch.datasets.utils import getNerfppNorm
     from gaustudio_torch.models.sap import ShapeAsPoints
@@ -2360,13 +2378,7 @@ def pcd_full(out_dir: str, device, card: str) -> dict:
     check(len(faces) > 1000, f"the SAP mesh has {len(faces)} faces")
     check(off < 2 * voxel, f"the SAP mesh lies {off:.4f} from the sphere (voxel {voxel:.4f})")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gs_extract_pcd.main(argv)
-        torch.cuda.synchronize()
-    busy = sum(float(getattr(ev, "self_device_time_total", None)
-                     or getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
-    check(busy > 0, "torch.profiler recorded no device time in gs-extract-pcd")
+    busy = profiled_device_s(lambda: gs_extract_pcd.main(argv))
 
     # the same pipeline, stage by stage, each fenced by synchronize
     pcd = load_model(ply, 0, device)
@@ -2748,6 +2760,256 @@ def from_mesh_render(mesh: str, tag: str, out_dir: str, device, card: str) -> tu
     return counts, lit, cover
 
 
+# --- phase 14: gs-init and gs-process-data ------------------------------------
+
+# The capture: phase 11's full-width sphere (300k Gaussians) at opacity 0.95,
+# so every silhouette is solid, rendered from three orbit rings of 12
+# cameras at elevations -30, 0 and +30 degrees (radius 3) at 1920x1080,
+# written as a nerfstudio capture with 16-bit median depth in millimetres,
+# masks of final opacity > 0.5 and a 20k-point sample of the sphere as
+# sparse/0/points3D.bin. The field of view is 60 degrees along the short
+# side, so the sphere (39 degrees across from radius 3) lies inside every
+# frame: the visual hull carves what a view does not see.
+CAPTURE_RINGS, CAPTURE_PER_RING, CAPTURE_RADIUS = (-30.0, 0.0, 30.0), 12, 3.0
+CAPTURE_FOV_SHORT = 60.0
+CAPTURE_OPACITY, CAPTURE_SPARSE_N = 0.95, 20_000
+DEPTH_DOWNSAMPLE = 4  # the depth initializer's default
+DEPTH_MEDIAN_TOL = 0.01  # median | |p| - 1 | of the fused points, of the radius
+HULL_RES = 128  # the VisualHull initializer's default grid
+SKY_RES = 100  # the gaussiansky initializer's default resolution
+INIT_TRAIN_STEPS = 30
+INIT_NEVER = ("render_surfel_tiles", "render_surfel_tiles_backward")
+
+
+def capture_cameras(W: int, H: int, device, rings=CAPTURE_RINGS, per_ring: int = CAPTURE_PER_RING,
+                    radius: float = CAPTURE_RADIUS) -> list:
+    """Orbit rings about the origin at the given elevations, ``per_ring``
+    cameras each, at WxH: a field of view of CAPTURE_FOV_SHORT degrees along
+    the short side and the same focal length along both; named
+    frame_00000, frame_00001, ..."""
+    from gaustudio_torch.cameras.camera_paths import get_path_from_orbit
+    from gaustudio_torch.datasets.utils import JSON_to_camera, camera_to_JSON
+
+    fov_x = 2 * math.degrees(math.atan(math.tan(math.radians(CAPTURE_FOV_SHORT / 2))
+                                       * W / min(W, H)))
+    cams = []
+    for elevation in rings:
+        for cam in get_path_from_orbit(np.zeros(3), radius, elevation=elevation, num_cam=per_ring,
+                                       image_size=W, fov_deg=fov_x, device="cpu"):
+            cj = camera_to_JSON(len(cams), cam)
+            cj.update(height=H, fy=cj["fx"], cy=H / 2, img_name=f"frame_{len(cams):05d}")
+            cams.append(JSON_to_camera(cj, device=device))
+    return cams
+
+
+def capture_views(renderer, pcd, cams):
+    """Per camera (rgb [H, W, 3], median depth [H, W], final opacity [H, W])
+    of the render, as host arrays."""
+    for cam in cams:
+        out = renderer.render(cam, pcd)
+        yield (out["render"].permute(1, 2, 0).cpu().numpy(),
+               out["rendered_median_depth"][0].cpu().numpy(),
+               out["rendered_final_opacity"][0].cpu().numpy())
+
+
+def write_capture(root: str, cams: list, views, sparse_xyz: np.ndarray,
+                  sparse_rgb: np.ndarray) -> list:
+    """A nerfstudio capture of ``cams`` and their ``views``:
+    transforms.json (per-frame fl_x, fl_y, cx, cy, w, h in float64; the camera-to-world
+    pose in OpenGL axes, which the loader's ``c2w[:, 1:3] *= -1`` undoes),
+    images/ (RGB PNGs, filter 0), depths/ (16-bit median depth in
+    millimetres, 0 where the final opacity is at most 0.5), masks/ (255
+    where it is above) and sparse/0/points3D.bin. Returns the depth maps as
+    written (uint16)."""
+    from gaustudio_torch.cameras import fov2focal
+    from gaustudio_torch.datasets.utils import write_points3D_binary
+    from gaustudio_torch.utils.image import BackgroundWriter, write_png
+
+    for sub in ("images", "depths", "masks", os.path.join("sparse", "0")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    frames, depths = [], []
+    with BackgroundWriter() as writer:
+        for cam, (rgb, depth, alpha) in zip(cams, views):
+            name = f"{cam.image_name}.png"
+            c2w = np.linalg.inv(cam.extrinsics.cpu().numpy().astype(np.float64))
+            c2w[:, 1:3] *= -1  # COLMAP's axes -> nerfstudio's
+            frames.append({"file_path": f"images/{name}", "mask_path": f"masks/{name}",
+                           "depth_file_path": f"depths/{name}", "w": cam.image_width,
+                           "h": cam.image_height,
+                           "fl_x": fov2focal(cam.FoVx, cam.image_width),
+                           "fl_y": fov2focal(cam.FoVy, cam.image_height),
+                           "cx": cam.image_width * cam.principal_point_ndc[0],
+                           "cy": cam.image_height * cam.principal_point_ndc[1],
+                           "transform_matrix": c2w.tolist()})
+            solid = alpha > 0.5
+            depth_mm = np.where(solid, np.clip(np.round(depth * 1000.0), 0, 65535), 0)
+            depths.append(depth_mm.astype(np.uint16))
+            writer.submit(write_png, os.path.join(root, "images", name),
+                          np.round(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8))
+            writer.submit(write_png, os.path.join(root, "depths", name), depths[-1])
+            writer.submit(write_png, os.path.join(root, "masks", name),
+                          (solid * 255).astype(np.uint8))
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump({"frames": frames}, f)
+    write_points3D_binary(sparse_xyz, sparse_rgb,
+                          os.path.join(root, "sparse", "0", "points3D.bin"))
+    return depths
+
+
+def downsampled_valid(depths: list, scale: int = DEPTH_DOWNSAMPLE) -> int:
+    """Pixels with depth > 0 after Camera.downsample_scale(scale)'s
+    nearest-exact resample of each depth map."""
+    total = 0
+    for d in depths:
+        h, w = d.shape
+        small = torch.nn.functional.interpolate(
+            torch.from_numpy(d.astype(np.float32))[None, None],
+            size=(round(h / scale), round(w / scale)), mode="nearest-exact")
+        total += int((small > 0).sum())
+    return total
+
+
+def timed_cli(fn) -> tuple:
+    """(result, wall s, peak device bytes) of one fenced call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def init_full(out_dir: str, device, card: str) -> dict:
+    """gs-process-data and gs-init on a capture the port renders of phase
+    11's full-width sphere (K1-K3), then gs-train from gs-init's cloud
+    (K1-K4): (a) --init depth, (b) --initializer VisualHull (the pose step
+    builds from the capture's points3D.bin), (c) --init gaussiansky, (d) 30
+    steps of gs-train. Returns the launch counts of the phase."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.datasets.utils import getNerfppNorm
+    from gaustudio_torch.pipelines import train as T
+    from gaustudio_torch.pipelines.initializers import mask as vh
+    from gaustudio_torch.scripts import initialize as gs_init
+    from gaustudio_torch.scripts import process_data as gs_process_data
+    from gaustudio_torch.scripts import train as gs_train
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    for module in ("PIL", "cv2"):
+        try:
+            __import__(module)
+            say("init", f"{module} imports")
+        except ImportError:
+            say("init", f"{module} does not import")
+
+    root = os.path.join(out_dir, "capture")
+    shutil.rmtree(root, ignore_errors=True)
+    reset_counts()
+    pcd = sphere_model(MESH_FULL_N, device)
+    pcd._opacity = torch.full_like(pcd._opacity, math.log(CAPTURE_OPACITY / (1 - CAPTURE_OPACITY)))
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    cams = capture_cameras(FULL_W, FULL_H, device)
+    xyz, rgb = sphere_points(MESH_FULL_N)
+    t0 = time.perf_counter()
+    depths = write_capture(root, cams, capture_views(renderer, pcd, cams), xyz[:CAPTURE_SPARSE_N],
+                           (rgb[:CAPTURE_SPARSE_N] * 255).astype(np.uint8))
+    capture_s = time.perf_counter() - t0
+    del pcd
+    say("init", f"capture: {len(cams)} views at {FULL_W}x{FULL_H} of {MESH_FULL_N} Gaussians "
+        f"(opacity {CAPTURE_OPACITY}) rendered and written as nerfstudio in {capture_s:.3f} s; "
+        f"{sum(int((d > 0).sum()) for d in depths)} depth pixels | {card}")
+
+    # (a) gs-process-data --init depth
+    ws_a = os.path.join(out_dir, "init_depth")
+    argv = ["--dataset", "nerfstudio", "-s", root, "-o", ws_a, "--init", "depth",
+            "--device", "cuda", "--overwrite"]
+    model, wall, peak = timed_cli(lambda: gs_process_data.main(argv))
+    busy = profiled_device_s(lambda: gs_process_data.main(argv))
+    fused = model._xyz
+    want = downsampled_valid(depths)
+    dev = (torch.linalg.norm(fused, dim=1) - 1.0).abs()
+    med, p99 = float(dev.median()), float(torch.quantile(dev, 0.99))
+    say("init", f"(a) gs-process-data --init depth: {model.num_points} points (capture's depth > 0 "
+        f"pixels at {round(FULL_W / DEPTH_DOWNSAMPLE)}x{round(FULL_H / DEPTH_DOWNSAMPLE)}: {want}), "
+        f"median | |p| - 1 | {med:.6f}, 99th percentile {p99:.6f}; {wall:.3f} s wall, busy "
+        f"{busy:.3f} s of a second run, busy share {busy / wall:.4f}, peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB | {card}")
+    check(model.num_points == want, f"(a) fused {model.num_points} points, {want} valid depths")
+    check(med <= DEPTH_MEDIAN_TOL, f"(a) median | |p| - 1 | {med} above {DEPTH_MEDIAN_TOL} of the "
+          "sphere's radius (1)")
+    check(torch.isfinite(fused).all(), "(a) non-finite points")
+    del model, fused, dev
+
+    # (b) gs-init --initializer VisualHull, its pose step building from the
+    # capture's sparse/0/points3D.bin (hloc's should_skip)
+    meshes = []
+    build = vh.VisualHullInitializer.build_model
+
+    def spy(self, model):
+        meshes.append(self.mesh)
+        return build(self, model)
+
+    argv = ["--dataset", "nerfstudio", "-s", root, "-o", root, "-w", "--initializer",
+            "VisualHull", "--device", "cuda"]
+    vh.VisualHullInitializer.build_model = spy
+    try:
+        ply, wall, peak = timed_cli(lambda: gs_init.main(argv))
+        busy = profiled_device_s(lambda: gs_init.main(argv))
+    finally:
+        vh.VisualHullInitializer.build_model = build
+    verts, faces = meshes[0]
+    radius = getNerfppNorm(cams)["min_radius"]
+    voxel = 2 * radius / (HULL_RES - 1)
+    depth_in = float(1.0 - np.linalg.norm(verts, axis=1).min())
+    hull_xyz, _, _ = fetch_ply(ply)
+    say("init", f"(b) gs-init --initializer VisualHull (grid {HULL_RES}^3, voxel {voxel:.4f}): "
+        f"{len(verts)} vertices, {len(faces)} faces, {len(hull_xyz)} Gaussians; deepest vertex "
+        f"{depth_in:.4f} inside the sphere ({depth_in / voxel:.3f} voxels); {wall:.3f} s wall, "
+        f"busy {busy:.3f} s of a second run, busy share {busy / wall:.4f}, peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB | {card}")
+    check(len(faces) > 1000, f"(b) the hull has {len(faces)} faces")
+    check(depth_in <= math.sqrt(3) * voxel, f"(b) a hull vertex {depth_in} inside the sphere")
+    check(len(hull_xyz) == len(faces), f"(b) {len(hull_xyz)} Gaussians of {len(faces)} faces")
+
+    # (c) gs-process-data --init gaussiansky
+    sky = gs_process_data.main(["--dataset", "nerfstudio", "-s", root, "-o",
+                                os.path.join(out_dir, "init_sky"), "--init", "gaussiansky",
+                                "--device", "cuda"])
+    say("init", f"(c) gs-process-data --init gaussiansky: {sky.num_points} Gaussians")
+    check(sky.num_points == SKY_RES ** 2, f"(c) {sky.num_points} Gaussians")
+    check(sky._xyz.device.type == "cuda", "(c) the model is not on the card")
+
+    # (d) gs-train from (b)'s cloud, each step fenced and its loss kept
+    losses, steps_ms = [], []
+    step = T.Trainer.step
+
+    def timed_step(self, batch, settings):
+        t0 = time.perf_counter()
+        state, metrics = step(self, batch, settings)
+        losses.append(float(metrics["loss"]))
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        return state, metrics
+
+    T.Trainer.step = timed_step
+    try:
+        gs_train.main(["-s", root, "-o", os.path.join(out_dir, "init_train"), "--dataset",
+                       "nerfstudio", "--iterations", str(INIT_TRAIN_STEPS), "--save_every",
+                       str(INIT_TRAIN_STEPS), "--device", "cuda"])
+    finally:
+        T.Trainer.step = step
+    counts = read_counts()
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    say("init", f"(d) gs-train --dataset nerfstudio from (b)'s {len(hull_xyz)} Gaussians: "
+        f"{INIT_TRAIN_STEPS} steps, {statistics.median(steps_ms[5:]):.3f} ms/it (median of steps "
+        f"6-{INIT_TRAIN_STEPS}, each fenced by its loss's read), loss of the first 5 steps "
+        f"{first:.5f}, of the last 5 {last:.5f} | {card}")
+    check(len(losses) == INIT_TRAIN_STEPS, f"(d) {len(losses)} steps")
+    check(last < first, f"(d) the loss did not fall: {first} -> {last}")
+    say("init", f"capture, gs-init, gs-process-data and gs-train: launches {json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in TRAIN_PATH), f"a kernel was not launched: {counts}")
+    check(all(counts[k] == 0 for k in INIT_NEVER), f"a surfel kernel ran: {counts}")
+    return counts
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -3011,6 +3273,10 @@ def main(argv=None) -> int:
     path_counts.extend(pcd_fixture(args.out, device, card))
     path_counts.append(pcd_full(args.out, device, card))
     path_counts.extend(mesh_tools(args.out, device, card))
+
+    # phase 14: gs-init and gs-process-data on a capture rendered of phase 11's
+    # sphere (K1-K3), then gs-train from gs-init's cloud (K1-K4)
+    path_counts.append(init_full(args.out, device, card))
 
     report = kernels_report(path_counts, errs, times, bounds)
     check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")

@@ -140,12 +140,15 @@ class Camera:
         self.camera_center = as_t(center)
 
     def load_image(self, image_path, bg_color=None):
-        """Read a PNG (RGBA is composited over ``bg_color``, default black)."""
+        """Read an image (RGBA is composited over ``bg_color``, default black,
+        and its alpha becomes the mask; any other image leaves the mask as it
+        was, as the JAX package does)."""
         from gaustudio_torch.utils.image import load_image
 
         img, mask = load_image(str(image_path), bg_color)
         self.image = torch.from_numpy(img).to(self.device)
-        self.mask = None if mask is None else torch.from_numpy(mask).to(self.device)
+        if mask is not None:
+            self.mask = torch.from_numpy(mask).to(self.device)
         self.image_path = image_path
         self.image_name = os.path.basename(str(image_path)).split(".")[0]
         self.image_height, self.image_width = img.shape[:2]
@@ -239,6 +242,18 @@ class Camera:
             d = torch.nn.functional.interpolate(d, size=(h, w), mode="nearest-exact")
             self.depth = d[0, 0].to(self.device)
         self.image_width, self.image_height = w, h
+        self._setup()
+        return self
+
+    def to(self, device) -> "Camera":
+        """Move the pixels and matrices to ``device``; returns self. A shallow
+        copy (``copy.copy``) moved so leaves the original's tensors where
+        they are."""
+        self.device = torch.device(device)
+        for field in ("image", "mask", "bg_image", "normal", "depth"):
+            value = getattr(self, field)
+            if value is not None:
+                setattr(self, field, value.to(self.device))
         self._setup()
         return self
 

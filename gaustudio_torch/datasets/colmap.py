@@ -32,16 +32,7 @@ from gaustudio_torch.datasets.utils import (
     read_intrinsics_binary,
     read_intrinsics_text,
 )
-from gaustudio_torch.utils.image import load_grey8, load_rgb8, load_samples
-
-
-def _resize_linear_u8(m: np.ndarray, width: int, height: int) -> np.ndarray:
-    """uint8 [h, w] -> [height, width], bilinear at pixel centres, rounded
-    (OpenCV's ``INTER_LINEAR`` up to its fixed-point rounding)."""
-    x = torch.from_numpy(m.astype(np.float32))[None, None]
-    out = torch.nn.functional.interpolate(x, size=(height, width), mode="bilinear",
-                                          align_corners=False)
-    return torch.round(out[0, 0]).clamp(0, 255).to(torch.uint8).numpy()
+from gaustudio_torch.utils.image import load_grey8, load_rgb8, load_samples, resize_linear_u8
 
 
 def _tensor(a):
@@ -122,7 +113,7 @@ class ColmapDataset(CameraDataset):
                     if mp.exists():
                         m = np.where(load_grey8(str(mp)) > 1, 255, 0).astype(np.uint8)
                         if m.shape != (height, width):
-                            m = _resize_linear_u8(m, width, height)
+                            m = resize_linear_u8(m, width, height)
                         mask = m.astype(np.float32) / 255.0
                         # the image where the mask is not full, else black
                         bg_image = np.where((m < 255)[..., None], rgb, 0).astype(np.float32) / 255.0

@@ -15,9 +15,15 @@ class GeneralPointCloud(BasePointCloud):
     default_conf = {"attributes": {"xyz": 3, "rgb": 3, "normal": 3}}
 
     def export(self, path):
-        """xyz, normals (zeros where the cloud has none) and uint8 RGB."""
+        """xyz, normals (zeros where the cloud has none) and uint8 RGB (white
+        where it has none, as a vanilla model colours a cloud given none).
+        The JAX export raises for a cloud without colours, such as the mesh
+        and visual-hull initializers build."""
         xyz = self._xyz.detach().cpu().numpy()
-        rgb = np.clip(self._rgb.detach().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        rgb = getattr(self, "_rgb", None)
+        rgb = (rgb.detach().cpu().numpy() if rgb is not None and len(rgb)
+               else np.ones_like(xyz))
+        rgb = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
         normal = getattr(self, "_normal", None)
         normal = (normal.detach().cpu().numpy() if normal is not None and len(normal)
                   else np.zeros_like(xyz))

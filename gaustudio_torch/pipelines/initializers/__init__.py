@@ -1,7 +1,9 @@
-"""Initializers registry (port of gaustudio_tpu/pipelines/initializers/__init__.py).
-
-The port has the mesh initializers (``mesh``, ``voxel``, ``tsdf``); the
-other seven of the JAX package come with gs-init in a later slice.
+"""Initializers registry (port of gaustudio_tpu/pipelines/initializers/__init__.py):
+the JAX package's twelve names, ``pcd``, ``depth``, ``dust3r``,
+``gaussiansky``, ``multigaussiansky``, ``mesh``, ``voxel``, ``tsdf``,
+``VisualHull``, ``colmap``, ``hloc`` and ``loftr``. ``depth``, ``tsdf``,
+``VisualHull`` and ``dust3r`` compute on ``device`` (None: the current CUDA
+device); the rest on the host.
 """
 
 from gaustudio_torch.registry import Registry
@@ -9,5 +11,8 @@ from gaustudio_torch.registry import Registry
 _registry = Registry("initializers")
 register = _registry.register
 make = _registry.make
+keys = _registry.keys
 
-from gaustudio_torch.pipelines.initializers import base, mesh  # noqa: E402,F401
+from gaustudio_torch.pipelines.initializers import (  # noqa: E402,F401
+    base, pcd, depth, dust3r, gaussiansky, mesh, mask, colmap,
+)

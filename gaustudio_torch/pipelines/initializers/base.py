@@ -45,10 +45,13 @@ def rotmat2quaternion(R: np.ndarray, normalize: bool = False) -> np.ndarray:
 
 class BaseInitializer(ABC):
     """cache_dataset -> process_dataset -> build_model, unless
-    ``should_skip`` says the cache is already there."""
+    ``should_skip`` says the cache is already there. ``device`` is where an
+    initializer that computes on the card does so (None: the current CUDA
+    device); the others compute on the host and ignore it."""
 
-    def __init__(self, initializer_config):
+    def __init__(self, initializer_config, device=None):
         self.initializer_config = initializer_config or {}
+        self.device = device
 
     def setup(self):
         pass

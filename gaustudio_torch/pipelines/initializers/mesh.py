@@ -51,8 +51,8 @@ class MeshInitializer(BaseInitializer):
 
     n_gaussians_per_surface_triangle = 1
 
-    def __init__(self, initializer_config):
-        super().__init__(initializer_config)
+    def __init__(self, initializer_config, device=None):
+        super().__init__(initializer_config, device)
         npg = int(self.initializer_config.get("n_gaussians_per_triangle",
                                               self.n_gaussians_per_surface_triangle))
         if npg not in _BARY_SETUPS:
@@ -103,8 +103,8 @@ class VoxelInitializer(BaseInitializer):
     """Gaussians at the centres of the voxels a mesh's surface crosses,
     found from area-weighted surface samples (``default_rng(0)``)."""
 
-    def __init__(self, initializer_config):
-        super().__init__(initializer_config)
+    def __init__(self, initializer_config, device=None):
+        super().__init__(initializer_config, device)
         self.voxel_size = float(self.initializer_config.get("voxel_size", 0.02))
         self.mesh = None
 
@@ -140,10 +140,9 @@ class TsdfInitializer(BaseInitializer):
     the current CUDA device), meshed, then placed as ``mesh`` places them."""
 
     def __init__(self, initializer_config, device=None):
-        super().__init__(initializer_config)
+        super().__init__(initializer_config, resolve_device(device))
         self.voxel_size = float(self.initializer_config.get("voxel_length", 0.01))
         self.sdf_trunc = float(self.initializer_config.get("sdf_trunc", 0.04))
-        self.device = resolve_device(device)
         self.mesh = None
 
     def __call__(self, model, dataset=None, overwrite=False):

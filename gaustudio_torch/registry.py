@@ -19,6 +19,9 @@ class Registry:
 
         return decorator
 
+    def keys(self):
+        return self._entries.keys()
+
     def make(self, config, **kwargs):
         """Instantiate a registered class from a name or a config mapping.
 

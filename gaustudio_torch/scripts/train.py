@@ -2,7 +2,8 @@
 gaustudio_tpu/scripts/train.py).
 
     python -m gaustudio_torch.scripts.train -s <scene> -o <out> \
-        [--dataset colmap|vanilla|nerf] [--config vanilla|2dgs|mip|gsplat|scaffold]
+        [--dataset colmap|vanilla|nerf|nerfstudio|scannet|...] \
+        [--config vanilla|2dgs|mip|gsplat|scaffold]
 
 Trains on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is asked
 for. Starts from ``<scene>/sparse/0/points3D.ply`` when it exists, else from
@@ -99,7 +100,7 @@ def main(argv=None):
     parser.add_argument("--iterations", default=30000, type=int)
     parser.add_argument("--resolution", default=1, type=int)
     parser.add_argument("--dataset", default="colmap",
-                        help="dataset registry name (colmap, vanilla or nerf in the port)")
+                        help="dataset registry name (colmap, vanilla, nerf, nerfstudio, ...)")
     parser.add_argument("--white_background", action="store_true")
     parser.add_argument("--save_every", default=7000, type=int)
     parser.add_argument("--seed", default=42, type=int)

@@ -10,8 +10,9 @@ import, it reads PNGs with :func:`read_png`, from the standard library
 filters, converted as PIL's ``convert("RGB")`` converts them unless they are
 RGBA. Anything else raises, naming PIL. :func:`write_png` stands in for PIL
 in ``save_image`` (gaustudio_tpu/pipelines/mesh_extraction.py), grey images
-included. :func:`load_rgb8`, :func:`load_grey8` and :func:`load_samples`
-decode as the JAX package's COLMAP loader does through OpenCV, which the
+included, and writes 16-bit grey depth maps. :func:`load_rgb8`,
+:func:`load_grey8`, :func:`load_samples` and :func:`resize_linear_u8`
+decode and resize as the JAX package's loaders do through OpenCV, which the
 port does not use.
 """
 
@@ -34,18 +35,24 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
 
 
 def write_png(path: str, pixels: np.ndarray) -> None:
-    """Write a uint8 [H, W] (grey), [H, W, 3] or [H, W, 4] array (filter 0 on
-    every row)."""
-    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
-    if pixels.ndim == 2:
-        pixels = pixels[..., None]
-    if pixels.ndim != 3 or pixels.shape[2] not in (1, 3, 4):
-        raise ValueError(f"expected [H, W] or [H, W, 3|4] pixels, got {pixels.shape}")
-    h, w, c = pixels.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
-    raw = np.zeros((h, 1 + w * c), np.uint8)
-    raw[:, 1:] = pixels.reshape(h, w * c)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    """Write a uint8 [H, W] (grey), [H, W, 3] or [H, W, 4] array, or a uint16
+    [H, W] grey image such as a depth map in millimetres (16-bit samples,
+    big-endian); filter 0 on every row."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype == np.uint16 and pixels.ndim == 2:
+        h, w = pixels.shape
+        color_type, depth, row = 0, 16, pixels.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    else:
+        pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+        if pixels.ndim == 2:
+            pixels = pixels[..., None]
+        if pixels.ndim != 3 or pixels.shape[2] not in (1, 3, 4):
+            raise ValueError(f"expected [H, W] or [H, W, 3|4] pixels, got {pixels.shape}")
+        h, w, c = pixels.shape
+        color_type, depth, row = {1: 0, 3: 2, 4: 6}[c], 8, pixels.reshape(h, w * c)
+    raw = np.zeros((h, 1 + row.shape[1]), np.uint8)
+    raw[:, 1:] = row
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", ihdr))
@@ -159,6 +166,21 @@ def save_image(path: str, array: np.ndarray) -> None:
     write_png(path, arr)
 
 
+def save_rgb8(path: str, img: np.ndarray) -> None:
+    """A uint8 RGB image to ``path`` through PIL, as the JAX package saves
+    it; without PIL a PNG is written by the stdlib encoder and any other
+    format raises, naming PIL."""
+    try:
+        from PIL import Image
+    except ImportError:
+        if not path.lower().endswith(".png"):
+            raise ImportError(f"{path}: an image other than a PNG is written through PIL, "
+                              "which does not import") from None
+        write_png(path, img)
+        return
+    Image.fromarray(img).save(path)
+
+
 def _decode(path: str) -> np.ndarray:
     """uint8 [H, W, 4] for an RGBA image, else [H, W, 3]: through PIL (with
     the EXIF orientation applied) where it imports, else through read_png."""
@@ -201,6 +223,18 @@ def load_grey8(path: str) -> np.ndarray:
     with Image.open(path) as img:
         img = ImageOps.exif_transpose(img)
         return np.asarray(img if img.mode == "L" else img.convert("L"))
+
+
+def resize_linear_u8(m: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [h, w] -> [height, width], bilinear at pixel centres without
+    antialiasing, rounded: OpenCV's ``resize`` (``INTER_LINEAR``) up to its
+    fixed-point rounding, which may land one level apart."""
+    import torch
+
+    x = torch.from_numpy(m.astype(np.float32))[None, None]
+    out = torch.nn.functional.interpolate(x, size=(height, width), mode="bilinear",
+                                          align_corners=False, antialias=False)
+    return torch.round(out[0, 0]).clamp(0, 255).to(torch.uint8).numpy()
 
 
 def load_samples(path: str) -> np.ndarray:

@@ -320,3 +320,47 @@ def test_kernels_line_sums_every_paths_launches_phase13s_too():
                "path_counts.extend(mesh_tools(")
     assert all(call in source for call in phase13)
     assert max(source.index(c) for c in phase13) < source.index("kernels_report(path_counts")
+
+
+def test_phase14_capture_reads_back_through_the_jax_nerfstudio_loader(tmp_path):
+    """Phase 14's capture writer on 3 views at 64x48 of a small sphere model
+    rendered on the CPU: the JAX nerfstudio loader reads back the cameras
+    (pose, field of view, principal point), the images, the 16-bit depths
+    in millimetres and the masks as written."""
+    from gaustudio_torch import renderers
+    from gaustudio_tpu import datasets as j_datasets
+
+    cams = chip_smoke.capture_cameras(64, 48, CPU, rings=(0.0,), per_ring=3)
+    pcd = chip_smoke.sphere_model(2000, CPU)
+    pcd._opacity = torch.full_like(pcd._opacity, 3.0)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=CPU)
+    views = list(chip_smoke.capture_views(renderer, pcd, cams))
+    root = str(tmp_path / "capture")
+    xyz, rgb = chip_smoke.sphere_points(50)
+    depths = chip_smoke.write_capture(root, cams, views, xyz, (rgb * 255).astype(np.uint8))
+    assert all((d > 0).mean() > 0.05 for d in depths)
+
+    ds = j_datasets.make({"name": "nerfstudio", "source_path": root, "w_mask": True})
+    assert [c.image_name for c in ds] == [f"images/frame_{i:05d}.png" for i in range(3)]
+    for jc, cam, (image, depth, alpha), d in zip(ds, cams, views, depths):
+        assert (jc.image_width, jc.image_height) == (64, 48)
+        np.testing.assert_allclose(jc.world_view_transform, cam.world_view_transform.numpy(),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(jc.full_proj_transform, cam.full_proj_transform.numpy(),
+                                   rtol=0, atol=1e-6)
+        assert abs(jc.FoVx - cam.FoVx) < 1e-9 and abs(jc.FoVy - cam.FoVy) < 1e-9
+        np.testing.assert_allclose(jc.principal_point_ndc, (0.5, 0.5), rtol=0, atol=1e-9)
+        np.testing.assert_array_equal(jc.image, np.round(np.clip(image, 0, 1) * 255) / 255)
+        np.testing.assert_array_equal(jc.depth, d.astype(np.float32) / 1000.0)
+        np.testing.assert_array_equal(jc.mask, (alpha > 0.5).astype(np.float32))
+        np.testing.assert_allclose(jc.depth[alpha > 0.5], depth[alpha > 0.5], rtol=0,
+                                   atol=5e-4 + 1e-6)  # rounded to the millimetre
+    # the depth initializer's count: the JAX camera's 4x downsample (PIL NEAREST)
+    assert chip_smoke.downsampled_valid(depths, 4) == sum(
+        int((jc.downsample_scale(4).depth > 0).sum()) for jc in ds)
+
+
+def test_kernels_line_counts_phase14s_launches():
+    source = inspect.getsource(chip_smoke.main)
+    assert source.index("path_counts.append(mesh_full(") < source.index(
+        "path_counts.append(init_full(") < source.index("kernels_report(path_counts")

@@ -145,6 +145,34 @@ def _tsdf_initializer_volume(tmp, **kw):
     return grids
 
 
+def _depth_initializer_points(tmp, **kw):
+    """The world points the depth initializer unprojects a host camera's
+    depth map to."""
+    cam = _cpu_views()[0]
+    cam.depth = torch.full((6, 8), 3.0)
+    init = initializers.make({"name": "depth", "workspace_dir": str(tmp), "downsample": 1}, **kw)
+    init.cache_dataset([cam])
+    return init._points + init._scales
+
+
+def _visual_hull_field(tmp, **kw):
+    """The carved field the VisualHull initializer hands to marching
+    tetrahedra, from two host cameras."""
+    from gaustudio_torch.ops import mcubes
+
+    fields = []
+    march = mcubes.marching_tetrahedra
+
+    def spy(field, *args, **kwargs):
+        fields.append(field)
+        return march(field, *args, **kwargs)
+
+    cams = get_path_from_orbit(np.zeros(3), 2.0, num_cam=2, image_size=8, device="cpu")
+    with mock.patch.object(mcubes, "marching_tetrahedra", spy):
+        initializers.make({"name": "VisualHull", "resolution": 8}, **kw).cache_dataset(cams)
+    return fields
+
+
 # entry point -> fn(tmp_path, **device kwargs) -> the tensors it made
 ENTRY_POINTS = {
     "renderers.make vanilla_renderer": lambda tmp, **kw: [
@@ -197,6 +225,8 @@ ENTRY_POINTS = {
         *TETRAHEDRON, n_samples=50, **kw).unit_points],
     "mesh_sap": _mesh_sap_grid,
     "TsdfInitializer": _tsdf_initializer_volume,
+    "DepthInitializer": _depth_initializer_points,
+    "VisualHullInitializer": _visual_hull_field,
 }
 
 
@@ -218,12 +248,14 @@ CLI_ARGV = {
     "render_mesh": ["-m", "mesh.ply", "-o", "out"],
     "texture_mesh": ["-m", "mesh.ply", "-o", "out.ply"],
     "mesh2gs": ["-m", "mesh.ply", "-o", "out.ply"],
+    "initialize": ["-s", "capture", "-o", "out"],
+    "process_data": ["-s", "capture", "-o", "out"],
 }
 
 
 @pytest.mark.parametrize("cli", list(CLI_ARGV))
 def test_cli_without_a_card_raises_unless_given_the_cpu(cli, monkeypatch):
-    """The CLIs of slice 6 default to --device cuda and refuse to run
+    """The CLIs of slices 6 and 7 default to --device cuda and refuse to run
     without a card, naming the CPU route."""
     import importlib
 
@@ -231,3 +263,17 @@ def test_cli_without_a_card_raises_unless_given_the_cpu(cli, monkeypatch):
     main = importlib.import_module(f"gaustudio_torch.scripts.{cli}").main
     with pytest.raises(RuntimeError, match='device="cpu"'):
         main(CLI_ARGV[cli])
+
+
+def test_dust3r_initializer_runs_its_model_on_the_named_device(tmp_path, monkeypatch):
+    """The dust3r initializer resolves its device as it is made: without a
+    card it raises unless given the CPU, and its external model is then run
+    on the device named."""
+    from gaustudio_torch.pipelines.initializers import dust3r
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        initializers.make({"name": "dust3r"})
+    init = initializers.make({"name": "dust3r", "workspace_dir": str(tmp_path)}, device="cpu")
+    assert init._run_dust3r.func is dust3r._run_mini_dust3r
+    assert init._run_dust3r.keywords == {"device": torch.device("cpu")}
