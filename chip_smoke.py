@@ -110,13 +110,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    share and peak device memory of each, (c) gs-process-data --init
    gaussiansky (100^2 Gaussians) and (d) 30 steps of gs-train --dataset
    nerfstudio from (b)'s cloud through K1-K4 (ms/it; the loss of the last 5
-   steps below that of the first 5); whether PIL and cv2 import.
+   steps below that of the first 5); whether PIL and cv2 import;
+15. the flythrough, host IO and observability: gs-render --flythrough of
+   phase 5's 300k model along a 90-camera path at 1920x1080 (a 90-degree yaw
+   arc about (0, 0, 3.4) centred on bench.py's identity view, proper
+   rotations, seeded jitter, three speed outliers): (a) the camera chain's
+   counts (the JAX chain's 77 / 40 / 40 / 78), host ms, the peak host
+   memory it allocates (tracemalloc) and the process's peak RSS; (b) the
+   CLI's launches (K1-K3, not K4 or K6), one 1080p PNG a frame named by its
+   index, the wall, and a staged run's render and file ms a frame and lit
+   fractions (the middle frame > 0.9);
+   (c) the first, middle and last frames through the kernels against the
+   plain path (K3's tolerance); (d) the device's busy share of a frame; (e)
+   points3D.bin of the 300k means (tracks of 4) and images.bin of the path
+   (4096 keypoints an image) read by the native and the Python readers:
+   equal, dtypes too, with their ms (the native library must build); (f) a
+   COLMAP database of the path (PINHOLE cameras, keypoints, sequential
+   matches, two-view geometries) read back, and the known-pose model
+   written and read back; (g) trace / annotate around three frames (the
+   trace holds the 'frame' regions and render_tiles kernel events); (h) the
+   rasterizer's debug snapshot: none of a finite frame, one naming the
+   opacities when one is NaN, and the ms debug adds to a frame.
 
-Each path (phases 4, 5, 6, 8, 9, 11, 12, 13 and 14) is driven with every
+Each path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14 and 15) is driven with every
 launch count set to 0 just before it and read just after; a kernel of the
 path that was not launched fails the run. The report's ``launches`` sums the
-counts of the render, training, mesh, variant, point-extraction and
-initialization paths (phases 5, 6, 8, 9, 11, 12, 13 and 14). The last two lines are
+counts of the render, training, mesh, variant, point-extraction,
+initialization and flythrough paths (phases 5, 6, 8, 9, 11, 12, 13, 14 and
+15). The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -3010,6 +3031,434 @@ def init_full(out_dir: str, device, card: str) -> dict:
     return counts
 
 
+# --- phase 15: the flythrough, host IO and observability --------------------
+
+# The path: FLY_N cameras on a FLY_ARC_DEG yaw arc about (0, 0, FLY_RADIUS)
+# at radius FLY_RADIUS, each facing the centre: the arc is centred on
+# bench.py's identity view, which looks into the scene's Gaussians (z in
+# 0.8-6). Seeded position jitter, and three cameras lifted in y as speed
+# outliers. The JAX package's chain (validate, keyframes, smoothing,
+# resampling) keeps FLY_COUNTS of it on the CPU; a CPU test holds both
+# packages to those counts.
+FLY_N, FLY_ARC_DEG, FLY_RADIUS, FLY_JITTER = 90, 90.0, 3.4, 0.004
+FLY_LIFTS, FLY_LIFT = (20, 50, 75), 0.4
+FLY_COUNTS = (77, 40, 40, 78)
+NATIVE_TRACK, NATIVE_KEYPOINTS = 4, 4096  # points3D.bin track length, keypoints an image
+DB_MATCHES = 1024  # matches of each sequential pair in the COLMAP database
+DEBUG_TURNS, DEBUG_RUN = 6, 20  # (h): 6 x (off, on, on, off) runs of 20 renders
+
+
+def flythrough_cameras(n: int = FLY_N, W: int = FULL_W, H: int = FULL_H,
+                       arc_deg: float = FLY_ARC_DEG, lifts=FLY_LIFTS, seed: int = 0) -> list:
+    """cameras.json entries of the flythrough path (see FLY_N), at bench.py's
+    focal length (tan(fov_x/2) = 0.85)."""
+    rng = np.random.default_rng(seed)
+    focal = W / (2.0 * 0.85)
+    centre = np.array([0.0, 0.0, FLY_RADIUS])
+    cams = []
+    for i in range(n):
+        yaw = math.radians(-arc_deg / 2 + arc_deg * i / (n - 1))
+        c, s = math.cos(yaw), math.sin(yaw)
+        rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+        check(abs(np.linalg.det(rot) - 1.0) < 1e-12, f"camera {i} is not a proper rotation")
+        pos = centre - FLY_RADIUS * rot[:, 2] + rng.normal(size=3) * FLY_JITTER
+        if i in lifts:
+            pos[1] += FLY_LIFT
+        cams.append({"id": i, "img_name": f"path_{i:03d}", "width": W, "height": H,
+                     "position": pos.tolist(), "rotation": rot.tolist(), "fx": focal, "fy": focal})
+    return cams
+
+
+FLY_CHAIN = ("validate_paths", "downsample_cameras", "smoothen_cameras",
+             "upsample_cameras_velocity")
+
+
+def flythrough_chain(path_json: str, device) -> dict:
+    """gs-render --flythrough's camera chain on a cameras.json, as the CLI
+    runs it: the count after each stage and the host ms of the chain
+    (scipy's first import, which smoothing pays, apart); the process's peak
+    RSS (getrusage) before and after it; and, from a second run of the chain
+    under tracemalloc, the peak host memory the chain itself allocates
+    (numpy arrays and Python objects; the cameras' tensors live on
+    ``device``)."""
+    import resource
+    import tracemalloc
+
+    from gaustudio_torch.cameras import camera_paths
+
+    path = camera_paths.get_path_from_json(path_json, device=device)
+    t0 = time.perf_counter()
+    import scipy.signal  # noqa: F401
+
+    import_ms = (time.perf_counter() - t0) * 1e3
+
+    def chain():
+        cams, counts = path, []
+        for stage in FLY_CHAIN:
+            cams = getattr(camera_paths, stage)(cams)
+            counts.append(len(cams))
+        return cams, counts
+
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    cams, counts = chain()
+    ms = (time.perf_counter() - t0) * 1e3
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    tracemalloc.start()
+    try:
+        chain()
+        traced_peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    return {"counts": counts, "ms": ms, "import_ms": import_ms, "rss_before_kib": rss0,
+            "rss_after_kib": rss1, "traced_peak_bytes": traced_peak,
+            "names": [c.image_name for c in cams], "cameras": cams}
+
+
+def png_size(path: str) -> tuple:
+    """(width, height) from a PNG's IHDR."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[12:16] == b"IHDR", f"{path} is not a PNG")
+    return tuple(int.from_bytes(head[i:i + 4], "big") for i in (16, 20))
+
+
+def write_points3d_tracks(path: str, xyz: np.ndarray, rgb: np.ndarray, track: int,
+                          seed: int) -> None:
+    """points3D.bin with ``track`` seeded (image id, point2D index) pairs a
+    point, written in one numpy pass (COLMAP's layout, packed)."""
+    rng = np.random.default_rng(seed)
+    rec = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+                    ("track_len", "<u8"), ("track", "<i4", 2 * track)])
+    buf = np.zeros(len(xyz), rec)
+    buf["id"] = np.arange(1, len(xyz) + 1)
+    buf["xyz"], buf["rgb"] = xyz, rgb
+    buf["error"] = rng.uniform(0.1, 2.0, len(xyz))
+    buf["track_len"] = track
+    buf["track"] = rng.integers(0, NATIVE_KEYPOINTS, (len(xyz), 2 * track))
+    with open(path, "wb") as f:
+        f.write(np.uint64(len(xyz)).tobytes())
+        f.write(buf.tobytes())
+
+
+def path_w2c(cj: dict) -> np.ndarray:
+    """The world -> camera matrix [4, 4] of a cameras.json entry."""
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.asarray(cj["rotation"])
+    c2w[:3, 3] = cj["position"]
+    return np.linalg.inv(c2w)
+
+
+def check_equal_arrays(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.dtype == want.dtype, f"{what}: dtype {got.dtype} against {want.dtype}")
+    check(np.array_equal(got, want), f"{what} differs")
+
+
+def native_readers(work: str, xyz: np.ndarray, path: list, card: str) -> None:
+    """Phase 15 (e): points3D.bin of ``xyz`` (tracks of NATIVE_TRACK) and
+    images.bin of the path's cameras (NATIVE_KEYPOINTS keypoints each), read
+    by the native and the Python readers: equal, dtypes too, with each
+    reader's ms."""
+    from gaustudio_torch.datasets import utils as dsu
+    from gaustudio_torch.utils import native
+
+    ok = native.available()
+    built = ("loaded a library built before this process" if native.build_seconds is None
+             else f"built by g++ in this process in {native.build_seconds:.3f} s")
+    say("fly", f"(e) native reader available: {ok} ({built}: "
+        f"{os.path.relpath(native.library_path(), REPO)})")
+    if not ok:
+        say("fly", f"(e) the compiler said:\n{native.build_error}")
+    check(ok, "the native COLMAP reader did not build")
+    rng = np.random.default_rng(5)
+    pts = os.path.join(work, "points3D.bin")
+    write_points3d_tracks(pts, xyz.astype(np.float64), rng.integers(0, 256, (len(xyz), 3)),
+                          NATIVE_TRACK, seed=6)
+    ims = {}
+    for i, cj in enumerate(path):
+        w2c = path_w2c(cj)
+        ims[i + 1] = dsu.ColmapImage(
+            i + 1, dsu.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, f"{cj['img_name']}.png",
+            rng.uniform(0, (cj["width"], cj["height"]), (NATIVE_KEYPOINTS, 2)),
+            rng.integers(-1, len(xyz), NATIVE_KEYPOINTS).astype(np.int64))
+    imgs = os.path.join(work, "images.bin")
+    dsu.write_extrinsics_binary(ims, imgs)
+    times = {}
+    for name, fn in (("points3D native", native.read_points3d_binary),
+                     ("points3D python", dsu.read_points3D_binary_python),
+                     ("images native", native.read_images_binary),
+                     ("images python", dsu.read_extrinsics_binary_python)):
+        t0 = time.perf_counter()
+        times[name] = (fn(pts if name.startswith("points") else imgs),
+                       (time.perf_counter() - t0) * 1e3)
+    for got, want, what in zip(times["points3D native"][0], times["points3D python"][0],
+                               ("xyz", "rgb", "error")):
+        check_equal_arrays(got, want, f"(e) points3D {what}")
+    check(times["points3D python"][0][1].dtype == np.int64, "(e) rgb is not int64")
+    native_ims, python_ims = times["images native"][0], times["images python"][0]
+    check(sorted(native_ims) == sorted(python_ims) == sorted(ims), "(e) image ids differ")
+    for k, im in python_ims.items():
+        q, t, cid, name, xys, pids = native_ims[k]
+        for got, want, what in ((q, im.qvec, "qvec"), (t, im.tvec, "tvec"), (xys, im.xys, "xys"),
+                                (pids, im.point3D_ids, "point3D_ids")):
+            check_equal_arrays(got, want, f"(e) image {k} {what}")
+        check((cid, name) == (im.camera_id, im.name), f"(e) image {k} camera id or name")
+    for kind in ("points3D", "images"):
+        nat, py = times[f"{kind} native"][1], times[f"{kind} python"][1]
+        size = os.path.getsize(pts if kind == "points3D" else imgs)
+        say("fly", f"(e) {kind}.bin ({size / 2 ** 20:.1f} MiB): native {nat:.3f} ms, python "
+            f"{py:.3f} ms, python / native {py / nat:.2f}; equal, dtypes too | {card}")
+
+
+def colmap_database(work: str, path: list, card: str) -> None:
+    """Phase 15 (f): a COLMAP database of the path's cameras (PINHOLE, one an
+    image), NATIVE_KEYPOINTS keypoints an image, sequential matches and
+    two-view geometries, read back; then the known-pose model of the path
+    (create_images_from_pose_dict) read back by the port's readers."""
+    from gaustudio_torch.datasets import utils as dsu
+    from gaustudio_torch.utils import colmap_db as cdb
+
+    rng = np.random.default_rng(7)
+    db_path = os.path.join(work, "database.db")
+    t0 = time.perf_counter()
+    db = cdb.COLMAPDatabase.connect(db_path)
+    try:
+        db.create_tables()
+        image_ids, keypoints = [], []
+        for cj in path:
+            W, H = cj["width"], cj["height"]
+            cam_id = db.add_camera("PINHOLE", W, H, [cj["fx"], cj["fy"], W / 2, H / 2])
+            image_ids.append(db.add_image(f"{cj['img_name']}.png", cam_id))
+            keypoints.append(rng.uniform(0, (W, H), (NATIVE_KEYPOINTS, 2)).astype(np.float32))
+            db.add_keypoints(image_ids[-1], keypoints[-1])
+        matches = {}
+        for a, b in zip(image_ids, image_ids[1:]):
+            m = rng.integers(0, NATIVE_KEYPOINTS, (DB_MATCHES, 2)).astype(np.uint32)
+            matches[(a, b)] = m
+            db.add_matches(a, b, m)
+            db.add_two_view_geometry(a, b, m)
+        db.commit()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cams = db.execute("SELECT camera_id, model, width, height, params FROM cameras").fetchall()
+        check(len(cams) == len(path), f"(f) {len(cams)} cameras")
+        for (cid, model, W, H, params), cj in zip(cams, path):
+            check((model, W, H) == (1, cj["width"], cj["height"]), f"(f) camera {cid}")
+            check(np.array_equal(cdb.blob_to_array(params, np.float64),
+                                 [cj["fx"], cj["fy"], W / 2, H / 2]), f"(f) camera {cid} params")
+        names = [r[0] for r in db.execute("SELECT name FROM images ORDER BY image_id")]
+        check(names == [f"{cj['img_name']}.png" for cj in path], "(f) image names")
+        for iid, rows, cols, blob in db.execute("SELECT image_id, rows, cols, data FROM keypoints"):
+            check(np.array_equal(cdb.blob_to_array(blob, np.float32, (rows, cols)),
+                                 keypoints[image_ids.index(iid)]), f"(f) keypoints of {iid}")
+        for table in ("matches", "two_view_geometries"):
+            rows = db.execute(f"SELECT pair_id, rows, cols, data FROM {table}").fetchall()
+            check(len(rows) == len(matches), f"(f) {len(rows)} {table}")
+            for pair_id, r, c, blob in rows:
+                pair = cdb.pair_id_to_image_ids(pair_id)
+                check(np.array_equal(cdb.blob_to_array(blob, np.uint32, (r, c)), matches[pair]),
+                      f"(f) {table} of {pair}")
+        configs = {r[0] for r in db.execute("SELECT config FROM two_view_geometries")}
+        check(configs == {2}, f"(f) two-view configs {configs}")
+        read_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        db.close()
+
+    model = os.path.join(work, "known_pose")
+    shutil.rmtree(model, ignore_errors=True)
+    cj = path[0]
+    cdb.create_cameras_and_points_bin(model, {1: {
+        "width": cj["width"], "height": cj["height"], "fx": cj["fx"], "fy": cj["fy"],
+        "cx": cj["width"] / 2, "cy": cj["height"] / 2}})
+    poses = {f"{c['img_name']}.png": path_w2c(c) for c in path}
+    cdb.create_images_from_pose_dict(model, poses)
+    intr = dsu.read_intrinsics_binary(os.path.join(model, "cameras.bin"))
+    check(intr[1].model == "PINHOLE" and (intr[1].width, intr[1].height) == (cj["width"], cj["height"]),
+          f"(f) cameras.bin {intr}")
+    for reader, name in ((dsu.read_extrinsics_binary, "images.bin"),
+                         (dsu.read_extrinsics_text, "images.txt")):
+        images = reader(os.path.join(model, name))
+        check(sorted(im.name for im in images.values()) == sorted(poses), f"(f) {name} names")
+        for im in images.values():
+            w2c = poses[im.name]
+            check(np.abs(dsu.qvec2rotmat(im.qvec) - w2c[:3, :3]).max() < 1e-12
+                  and np.abs(im.tvec - w2c[:3, 3]).max() < 1e-12, f"(f) {name} pose of {im.name}")
+    xyz, _, _ = dsu.read_points3D_binary(os.path.join(model, "points3D.bin"))
+    check(len(xyz) == 0, "(f) the known-pose points3D.bin is not empty")
+    say("fly", f"(f) COLMAP database: {len(path)} PINHOLE cameras and images, "
+        f"{NATIVE_KEYPOINTS} keypoints each, {len(matches)} sequential pairs of {DB_MATCHES} "
+        f"matches and two-view geometries: written in {write_ms:.3f} ms, read back and equal in "
+        f"{read_ms:.3f} ms; the known-pose model of {len(poses)} images reads back "
+        f"(images.bin, images.txt) within 1e-12 | {card}")
+
+
+def flythrough_full(out_dir: str, ply: str, device, card: str) -> dict:
+    """gs-render --flythrough of phase 5's 300k model along the FLY_N-camera
+    path at 1920x1080 through K1-K3, with (a) the camera chain's counts, host
+    ms and host memory, (b) the CLI's launches, frames
+    and wall and a staged run's render and file ms a frame, (c) the first,
+    middle and last frames through the kernels against the plain path, (d)
+    the device's busy share of a frame, (e) the native COLMAP readers, (f)
+    colmap_db, (g) trace / annotate and (h) the rasterizer's debug snapshot.
+    Returns the launch counts of the CLI's run."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.scripts import render as gs_render
+    from gaustudio_torch.utils.image import BackgroundWriter, read_png, write_png
+    from gaustudio_torch.utils.observability import annotate, trace
+
+    work = os.path.join(out_dir, "flythrough")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = flythrough_cameras(W=FULL_W, H=FULL_H)
+    path_json = os.path.join(work, "path.json")
+    with open(path_json, "w") as f:
+        json.dump(path, f)
+
+    # (a) the camera chain, as gs-render --flythrough runs it
+    chain = flythrough_chain(path_json, device)
+    say("fly", f"(a) path of {FLY_N} cameras at {FULL_W}x{FULL_H} (proper rotations): "
+        f"{' -> '.join(f'{s} {n}' for s, n in zip(FLY_CHAIN, chain['counts']))} (JAX chain on "
+        f"the CPU: {FLY_COUNTS}); {chain['ms']:.3f} ms of host time (and "
+        f"{chain['import_ms']:.3f} ms to import scipy.signal first); peak host allocation "
+        f"{chain['traced_peak_bytes'] / 2 ** 20:.3f} MiB (tracemalloc); the process's peak RSS "
+        f"{chain['rss_before_kib'] / 1024:.1f} MiB before the chain, "
+        f"{chain['rss_after_kib'] / 1024:.1f} MiB after (getrusage) | {card}")
+    check(tuple(chain["counts"]) == FLY_COUNTS, f"(a) chain counts {chain['counts']}")
+    names = chain["names"]
+
+    # (b) gs-render --flythrough, the main path
+    reset_counts()
+    t0 = time.perf_counter()
+    images = gs_render.main(["-m", ply, "-s", path_json, "--flythrough", "--sh", "3",
+                             "--device", device.type, "-o", os.path.join(work, "cli")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    say("fly", f"(b) gs-render --flythrough: {len(names)} frames of {FULL_W}x{FULL_H}, {FULL_N} "
+        f"Gaussians SH 3 in {wall:.3f} s wall (load, chain, render, PNG); launches "
+        f"{json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in FORWARD), f"a kernel was not launched: {counts}")
+    check(all(counts[k] == 0 for k in MESH_NEVER), f"a backward kernel ran: {counts}")
+    pngs = sorted(os.listdir(images))
+    check(pngs == [f"{n}.png" for n in names], f"(b) frames {pngs[:3]}... against {names[:3]}...")
+    check(all(png_size(os.path.join(images, p)) == (FULL_W, FULL_H) for p in pngs),
+          "(b) a frame is not 1920x1080")
+
+    # the staged run: every frame rendered and read back, then written
+    pcd = load_model(ply, 3, device)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    cams = chain["cameras"]
+    frames, lit = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cam in cams:
+        out = renderer.render(cam, pcd)
+        lit.append((out["render"].sum(0) > 0).float().mean())
+        frames.append(gs_render.frame_pixels(out).cpu().numpy())
+    render_s = (time.perf_counter() - t0) / len(cams)
+    staged = os.path.join(work, "staged")
+    os.makedirs(staged)
+    t0 = time.perf_counter()
+    with BackgroundWriter() as writer:
+        for cam, frame in zip(cams, frames):
+            writer.submit(write_png, os.path.join(staged, f"{cam.image_name}.png"), frame)
+    files_ms = (time.perf_counter() - t0) / len(cams) * 1e3
+    lit = torch.stack(lit).cpu()
+    mid = len(cams) // 2
+    say("fly", f"(b) staged: render + read-back {render_s * 1e3:.3f} ms a frame, PNG writes "
+        f"{files_ms:.3f} ms a frame (two writer threads); lit fraction of the middle frame "
+        f"{float(lit[mid]):.4f} (guard > 0.9), smallest {float(lit.min()):.4f} | {card}")
+    check(float(lit[mid]) > 0.9, f"(b) middle frame mostly empty: {float(lit[mid]):.3f} lit")
+    check(np.array_equal(read_png(os.path.join(images, pngs[mid])), frames[mid]),
+          "(b) the CLI's middle frame is not the staged run's")
+    del frames
+
+    # (c) the first, middle and last frames through the kernels against the plain path
+    errs = []
+    for i in (0, mid, len(cams) - 1):
+        cam = cams[i]
+        xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
+        st = renderer.make_settings(cam, pcd, device)
+        with torch.inference_mode():
+            got, ref = (rast.rasterize(xyz, opacity, s, shs=shs, scales=scales,
+                                       rotations=rotations, active_sh_degree=3)
+                        for s in (st, st._replace(backend="plain")))
+            errs.append(compare_rasterize(got, ref, f"(c) frame {cam.image_name}"))
+    say("fly", f"(c) frames {cams[0].image_name}, {cams[mid].image_name}, {cams[-1].image_name}: "
+        f"kernels against plain max|err| {', '.join(f'{e:.3e}' for e in errs)} (floats abs "
+        f"{K3_ATOL} + rel {K3_RTOL}, ints equal)")
+
+    # (d) the device's busy share of a warm frame
+    busy_share(f"flythrough frame {FULL_W}x{FULL_H} {FULL_N} pts SH3 (render + read-back)",
+               lambda: gs_render.frame_pixels(renderer.render(cams[mid], pcd)).cpu(),
+               render_s, card)
+
+    # (e) the native COLMAP readers, (f) the COLMAP database
+    native_readers(work, pcd._xyz.detach().cpu().numpy(), path, card)
+    colmap_database(work, path, card)
+
+    # (g) trace / annotate around three frames
+    with trace(os.path.join(work, "trace"), "flythrough", device) as trace_path:
+        for cam in (cams[0], cams[mid], cams[-1]):
+            with annotate("frame"):
+                gs_render.frame_pixels(renderer.render(cam, pcd)).cpu()
+    check(os.path.exists(trace_path), f"(g) no trace file {trace_path}")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    regions = [e for e in events if e.get("name") == "frame"]
+    kernels_seen = [e for e in events if str(e.get("cat", "")).lower() == "kernel"
+                    and "render_tiles" in e.get("name", "")]
+    say("fly", f"(g) trace {os.path.basename(trace_path)}: "
+        f"{os.path.getsize(trace_path) / 2 ** 20:.2f} MiB, {len(events)} events, "
+        f"{len(regions)} 'frame' regions, {len(kernels_seen)} render_tiles kernel events")
+    check(len(regions) >= 3, f"(g) {len(regions)} 'frame' regions")
+    check(len(kernels_seen) >= 3, f"(g) {len(kernels_seen)} render_tiles kernel events")
+
+    # (h) the rasterizer's debug snapshot
+    snap = os.path.join(work, "snapshot_fw.dump")
+    debug = renderers.make({"name": "vanilla_renderer", "debug": True}, device=device)
+    saved_env = os.environ.get("GS_DEBUG_SNAPSHOT")
+    os.environ["GS_DEBUG_SNAPSHOT"] = snap
+    try:
+        debug.render(cams[mid], pcd)
+        check(not os.path.exists(snap), "(h) a snapshot of a finite frame")
+        walls = {"off": [], "on": []}
+        for _ in range(DEBUG_TURNS):  # in turns: off, on, on, off
+            for key, r in (("off", renderer), ("on", debug), ("on", debug), ("off", renderer)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DEBUG_RUN):
+                    r.render(cams[mid], pcd)
+                torch.cuda.synchronize()
+                walls[key].append((time.perf_counter() - t0) / DEBUG_RUN)
+        opacity = pcd._opacity
+        pcd._opacity = opacity.detach().clone()
+        pcd._opacity[FULL_N // 2] = float("nan")
+        try:
+            debug.render(cams[mid], pcd)
+        finally:
+            pcd._opacity = opacity
+    finally:
+        if saved_env is None:
+            del os.environ["GS_DEBUG_SNAPSHOT"]
+        else:
+            os.environ["GS_DEBUG_SNAPSHOT"] = saved_env
+    check(os.path.exists(snap), "(h) no snapshot of a frame with a NaN opacity")
+    bad = torch.load(snap)["bad_leaves"]
+    off, on = statistics.median(walls["off"]), statistics.median(walls["on"])
+    q_off, q_on = (statistics.quantiles(walls[k], n=4) for k in ("off", "on"))
+    say("fly", f"(h) debug: no snapshot of the finite frame; with one NaN opacity the snapshot "
+        f"names {bad} ({os.path.getsize(snap) / 2 ** 20:.1f} MiB); a finite frame's render "
+        f"{off * 1e3:.3f} ms without debug (quartiles {q_off[0] * 1e3:.3f}-{q_off[2] * 1e3:.3f}), "
+        f"{on * 1e3:.3f} ms with it ({q_on[0] * 1e3:.3f}-{q_on[2] * 1e3:.3f}): "
+        f"{(on - off) * 1e3:+.3f} ms (medians of {2 * DEBUG_TURNS} runs of {DEBUG_RUN} each, in "
+        f"turns) | {card}")
+    check("['inputs']['opacities']" in bad, f"(h) the snapshot does not name the opacities: {bad}")
+    return counts
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -3277,6 +3726,10 @@ def main(argv=None) -> int:
     # phase 14: gs-init and gs-process-data on a capture rendered of phase 11's
     # sphere (K1-K3), then gs-train from gs-init's cloud (K1-K4)
     path_counts.append(init_full(args.out, device, card))
+
+    # phase 15: gs-render --flythrough of the 300k scene at 1080p (K1-K3), the
+    # native COLMAP readers, colmap_db, trace / annotate and the debug snapshot
+    path_counts.append(flythrough_full(args.out, ply, device, card))
 
     report = kernels_report(path_counts, errs, times, bounds)
     check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")

@@ -9,8 +9,8 @@ tensors on ``device``: the current CUDA device unless the caller names one.
 Cameras are small; a caller may keep them on the CPU (``device="cpu"``), and
 the renderer and the trainer move what they read to their own device.
 
-The orbit paths are in ``cameras/camera_paths.py``; the rest of the JAX
-package's camera-path tools belong to a later slice.
+The camera paths (orbits, cubemaps, cameras.json paths) and gs-render
+--flythrough's tools are in ``cameras/camera_paths.py``.
 """
 
 from __future__ import annotations

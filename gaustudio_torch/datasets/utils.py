@@ -1,8 +1,10 @@
 """COLMAP model IO, cameras.json interop and scene normalisation (port of
 gaustudio_tpu/datasets/utils.py).
 
-The COLMAP readers and writers are the JAX package's pure-Python paths; its
-native parser (utils/native.py) belongs to a later slice.
+The binary COLMAP readers of images.bin and points3D.bin take the native
+parser (utils/native.py) where it is built, and the JAX package's
+pure-Python paths otherwise; both give the same arrays, the colours of
+points3D as int64.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict
 import numpy as np
 
 from gaustudio_torch.cameras import Camera, focal2fov, fov2focal, getWorld2View2
+from gaustudio_torch.utils import native
 
 
 CameraModel = collections.namedtuple("CameraModel", ["model_id", "model_name", "num_params"])
@@ -95,7 +98,20 @@ def write_intrinsics_binary(cameras: Dict[int, ColmapCamera], path) -> None:
 
 
 def read_extrinsics_binary(path) -> Dict[int, ColmapImage]:
-    """images.bin -> {image id: ColmapImage}."""
+    """images.bin -> {image id: ColmapImage}, through the native parser
+    where it is built."""
+    try:
+        raw = native.read_images_binary(path)
+    except IOError:
+        raw = None
+    if raw is not None:
+        return {iid: ColmapImage(iid, q, t, cid, name, xys, pids)
+                for iid, (q, t, cid, name, xys, pids) in raw.items()}
+    return read_extrinsics_binary_python(path)
+
+
+def read_extrinsics_binary_python(path) -> Dict[int, ColmapImage]:
+    """images.bin -> {image id: ColmapImage}, parsed in Python."""
     images = {}
     with open(path, "rb") as fid:
         (num_images,) = _read_bytes(fid, 8, "Q")
@@ -184,7 +200,19 @@ def read_extrinsics_text(path) -> Dict[int, ColmapImage]:
 
 
 def read_points3D_binary(path):
-    """points3D.bin -> (xyz [N, 3], rgb [N, 3], error [N, 1])."""
+    """points3D.bin -> (xyz [N, 3] float64, rgb [N, 3] int64, error [N, 1]
+    float64), through the native parser where it is built."""
+    try:
+        result = native.read_points3d_binary(path)
+    except IOError:
+        result = None
+    if result is not None:
+        return result
+    return read_points3D_binary_python(path)
+
+
+def read_points3D_binary_python(path):
+    """points3D.bin -> (xyz, rgb int64, error), parsed in Python."""
     xyzs, rgbs, errors = [], [], []
     with open(path, "rb") as fid:
         (num_points,) = _read_bytes(fid, 8, "Q")
@@ -195,7 +223,7 @@ def read_points3D_binary(path):
             errors.append(props[7])
             (track_len,) = _read_bytes(fid, 8, "Q")
             fid.seek(8 * track_len, 1)
-    return (np.array(xyzs).reshape(-1, 3), np.array(rgbs).reshape(-1, 3),
+    return (np.array(xyzs).reshape(-1, 3), np.array(rgbs, np.int64).reshape(-1, 3),
             np.array(errors).reshape(-1, 1))
 
 

@@ -15,6 +15,7 @@ tile cull).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,6 +39,7 @@ class RasterizeSettings(NamedTuple):
     backend: str = "auto"  # "auto": kernels on CUDA; "plain": plain versions
     antialias: bool = False  # gsplat slice
     intrinsics: Optional[torch.Tensor] = None  # gsplat slice
+    debug: bool = False  # snapshot inputs and outputs when any is non-finite
 
 
 def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
@@ -88,6 +90,21 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
                               bg.to(device=pre.depths.device, dtype=torch.float32),
                               binned.ranges, binned.point_list, grid_x, grid_y, W, H,
                               plain=plain)
+    if settings.debug:
+        # the reference's debug=True dumps the kernel arguments for offline
+        # repro (gaustudio_diff_gaussian_rasterization/__init__.py:83-90);
+        # here, as in the JAX package, inputs and outputs are saved to
+        # $GS_DEBUG_SNAPSHOT whenever any of them is non-finite
+        from gaustudio_torch.utils import observability
+
+        observability.snapshot_on_nonfinite(
+            {"inputs": {"means3D": means3D, "opacities": torch.reshape(opacities, (-1,)),
+                        "shs": shs, "colors_precomp": colors_precomp, "scales": scales,
+                        "rotations": rotations, "cov3D_precomp": cov3D_precomp,
+                        "viewmatrix": settings.viewmatrix, "projmatrix": settings.projmatrix},
+             "outputs": {"render": out.color, "depth": out.depth, "final_T": out.final_T}},
+            os.environ.get("GS_DEBUG_SNAPSHOT", "snapshot_fw.dump"),
+            context="rasterize forward (debug=True)")
     return {
         "render": out.color,
         "rendered_depth": out.depth,

@@ -40,6 +40,7 @@ class BaseRenderer:
             sh_degree=getattr(gaussian_model, "max_sh_degree", 3),
             campos=camera.camera_center.to(device),
             antialias=bool(self.config.get("antialias", False)),
+            debug=bool(self.config.get("debug", False)),
         )
 
     @torch.inference_mode()

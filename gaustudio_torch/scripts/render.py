@@ -7,7 +7,11 @@ COLMAP dir>] [--config vanilla|2dgs|mip|gsplat|pcd|scaffold]``: the config
 names the model and the renderer (2DGS surfels, Mip-Splatting, gsplat's
 antialiased mode, a plain RGB point cloud, Scaffold-GS anchors).
 Renders on ``--device cuda`` (card ``--gpu``) unless ``--device cpu`` is
-asked for. Writes one PNG per camera to ``<output>/images``.
+asked for. Writes one PNG per camera to ``<output>/images`` on background
+threads, and ``<output>/render.mp4`` through imageio where it has a video
+backend. ``--flythrough`` first validates, keyframes, smooths and resamples
+the camera path (cameras/camera_paths.py, in the JAX package's order); its
+frames are named by their 8-digit index.
 """
 
 from __future__ import annotations
@@ -30,6 +34,16 @@ def _device(args) -> torch.device:
     return torch.device(args.device)
 
 
+def frame_pixels(out: dict) -> torch.Tensor:
+    """The frame gs-render writes of a render: its colour where the final
+    opacity is at least 0.5, black elsewhere, quantised as save_image
+    quantises (x 255, clipped, truncated) on the render's device: uint8
+    [H, W, 3]."""
+    rgb = out["render"].permute(1, 2, 0)
+    rgb = torch.where(out["rendered_final_opacity"][0][..., None] >= 0.5, rgb, 0.0)
+    return torch.clamp(rgb * 255.0, 0, 255).to(torch.uint8)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="vanilla")
@@ -47,15 +61,10 @@ def main(argv=None):
     parser.add_argument("--fps", default=30, type=int)
     args, extras = parser.parse_known_args(argv)
 
-    if args.flythrough:
-        raise NotImplementedError(
-            "--flythrough needs the camera-path tools (cameras/camera_paths.py), "
-            "which the port adds in a later slice")
-
     from gaustudio_torch import datasets, models, renderers
     from gaustudio_torch.config import builtin_config_path, load_config
     from gaustudio_torch.datasets.utils import JSON_to_camera
-    from gaustudio_torch.utils.image import save_image
+    from gaustudio_torch.utils.image import BackgroundWriter, write_png
     from gaustudio_torch.utils.misc import searchForMaxIteration
 
     device = _device(args)
@@ -93,19 +102,42 @@ def main(argv=None):
     else:
         cameras = datasets.make({"name": "colmap", "source_path": args.source_path}).all_cameras
 
+    if args.flythrough:
+        from gaustudio_torch.cameras.camera_paths import (
+            downsample_cameras, smoothen_cameras, upsample_cameras_velocity, validate_paths)
+
+        cameras = validate_paths(cameras)
+        cameras = downsample_cameras(cameras)
+        cameras = smoothen_cameras(cameras)
+        cameras = upsample_cameras_velocity(cameras)
+
+    try:  # the frames are kept for the video only where imageio imports
+        import imageio.v2 as imageio
+        video_error = None
+    except ImportError as e:
+        video_error = e
     render_path = os.path.join(work_dir, "images")
     os.makedirs(render_path, exist_ok=True)
-    for i, camera in enumerate(cameras):
-        if args.resolution > 1:
-            camera = camera.downsample_scale(args.resolution)
-        out = renderer.render(camera, pcd)
-        rgb = out["render"].permute(1, 2, 0)
-        rgb = torch.where(out["rendered_final_opacity"][0][..., None] >= 0.5, rgb, 0.0)
-        name = camera.image_name or f"frame_{i:05d}"
-        if name.lower().endswith((".png", ".jpg", ".jpeg")):
-            name = os.path.splitext(name)[0]
-        save_image(os.path.join(render_path, f"{name}.png"), rgb.cpu().numpy())
-    print("Skipping video export: the port has no video encoder")
+    frames = []
+    with BackgroundWriter() as writer:
+        for i, camera in enumerate(cameras):
+            if args.resolution > 1:
+                camera = camera.downsample_scale(args.resolution)
+            frame = frame_pixels(renderer.render(camera, pcd)).cpu().numpy()
+            name = camera.image_name or f"frame_{i:05d}"
+            if name.lower().endswith((".png", ".jpg", ".jpeg")):
+                name = os.path.splitext(name)[0]
+            writer.submit(write_png, os.path.join(render_path, f"{name}.png"), frame)
+            if video_error is None:
+                frames.append(frame)
+
+    if video_error is None:
+        try:
+            imageio.mimwrite(os.path.join(work_dir, "render.mp4"), frames, fps=args.fps)
+        except Exception as e:  # imageio raises whatever its missing backend raises
+            video_error = e
+    if video_error is not None:
+        print(f"Skipping video export: {video_error}")
     print(f"Rendered {len(cameras)} views to {render_path}")
     return render_path
 

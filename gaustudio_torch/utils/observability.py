@@ -1,21 +1,61 @@
-"""Metrics and failure detection (port of gaustudio_tpu/utils/observability.py).
+"""Tracing, metrics and failure detection (port of
+gaustudio_tpu/utils/observability.py).
 
+* ``trace``: a block profiled with ``torch.profiler`` (CPU, and CUDA on the
+  card), written as one Chrome / Perfetto trace file; ``annotate``: a named
+  region inside it;
 * ``MetricsLogger``: append-only JSONL scalar metrics (loss, PSNR, point
   count, densify counts) with wall-clock timestamps;
 * ``snapshot_on_nonfinite``: when any tensor of a nested dict / list is
   non-finite, ``torch.save`` the whole tree for offline repro.
-
-The profiler helpers ``trace`` and ``annotate`` come with a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Optional
 
 import torch
+
+from gaustudio_torch.utils.misc import resolve_device
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, name: str = "gaustudio", device=None):
+    """Profile the block with torch.profiler inside a ``name`` region and
+    write one Chrome / Perfetto trace file into ``log_dir`` (open it in
+    ui.perfetto.dev or chrome://tracing). Records CPU activity, and CUDA
+    activity when ``device`` (None: the current CUDA device, as every entry
+    point resolves it) is a card. Yields the trace file's path."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    device = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError("trace: this torch.profiler cannot record CUDA activity")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{name}.{time.strftime('%Y%m%d_%H%M%S')}.{os.getpid()}"
+                                 ".pt.trace.json")
+    with profile(activities=activities) as prof:
+        with record_function(name):
+            yield path
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region inside an active trace."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        yield
 
 
 class MetricsLogger:
@@ -65,10 +105,17 @@ def _leaves(tree, path=""):
 
 def snapshot_on_nonfinite(tree, dump_path: str, context: str = "") -> bool:
     """If any floating tensor leaf has a non-finite value, write the whole
-    tree (on the CPU) to ``dump_path`` with ``torch.save`` and return True."""
-    bad = [path for path, leaf in _leaves(tree)
-           if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
-           and not bool(torch.isfinite(leaf).all())]
+    tree (on the CPU) to ``dump_path`` with ``torch.save`` and return True.
+    The test runs where the leaves are: one ``isfinite().all()`` a leaf,
+    stacked, and one read-back a device."""
+    leaves = [(path, leaf) for path, leaf in _leaves(tree)
+              if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    finite = {}
+    for device in {leaf.device for _, leaf in leaves}:
+        on = [(path, leaf) for path, leaf in leaves if leaf.device == device]
+        flags = torch.stack([torch.isfinite(leaf).all() for _, leaf in on]).tolist()
+        finite.update((path, ok) for (path, _), ok in zip(on, flags))
+    bad = [path for path, _ in leaves if not finite[path]]
     if not bad:
         return False
     os.makedirs(os.path.dirname(os.path.abspath(dump_path)), exist_ok=True)

@@ -1,8 +1,9 @@
 """What chip_smoke.py builds on the host, checked on the CPU: its copy of
 bench.make_scene, its imports, the hard cases of phase 3 (through the plain
 versions, which the kernels are held to on the card), K2's cases, phase
-11's scene and cameras against bench_all.py's, phase 13's pure helpers and
-the kernels line's launch sum."""
+11's scene and cameras against bench_all.py's, phase 13's pure helpers,
+phase 15's host steps (its points3D.bin writer, the native readers and the
+COLMAP database on a small path) and the kernels line's launch sum."""
 
 import ast
 import inspect
@@ -364,3 +365,54 @@ def test_kernels_line_counts_phase14s_launches():
     source = inspect.getsource(chip_smoke.main)
     assert source.index("path_counts.append(mesh_full(") < source.index(
         "path_counts.append(init_full(") < source.index("kernels_report(path_counts")
+
+
+def test_phase15_path_w2c_is_the_cameras_extrinsics():
+    """The world -> camera matrices phase 15 writes into images.bin and the
+    known-pose model are those of the cameras gs-render builds of the path."""
+    from gaustudio_torch.datasets.utils import JSON_to_camera
+
+    for cj in chip_smoke.flythrough_cameras(n=5, W=64, H=48, arc_deg=30.0, lifts=(2,)):
+        np.testing.assert_allclose(chip_smoke.path_w2c(cj),
+                                   JSON_to_camera(cj, device=CPU).extrinsics.numpy(), atol=1e-6)
+
+
+def test_phase15_points3d_with_tracks_reads_back_through_both_packages(tmp_path):
+    """write_points3d_tracks (COLMAP's layout with tracks of 4, written in
+    one numpy pass) reads back through the JAX reader and the port's."""
+    from gaustudio_torch.datasets import utils as t_dsu
+    from gaustudio_tpu.datasets import utils as j_dsu
+
+    rng = np.random.default_rng(0)
+    xyz, rgb = rng.normal(size=(40, 3)), rng.integers(0, 256, (40, 3))
+    path = str(tmp_path / "points3D.bin")
+    chip_smoke.write_points3d_tracks(path, xyz, rgb, chip_smoke.NATIVE_TRACK, seed=1)
+    assert os.path.getsize(path) == 8 + 40 * (43 + 8 + 8 * chip_smoke.NATIVE_TRACK)
+    for reader in (t_dsu.read_points3D_binary, t_dsu.read_points3D_binary_python,
+                   j_dsu.read_points3D_binary):
+        got_xyz, got_rgb, err = reader(path)
+        np.testing.assert_array_equal(got_xyz, xyz)
+        np.testing.assert_array_equal(got_rgb, rgb)
+        assert err.shape == (40, 1) and (err > 0).all()
+
+
+def test_phase15_native_readers_and_database_run_on_a_small_path(tmp_path):
+    """Phase 15 (e) and (f), host code, on 4 cameras and 500 points."""
+    path = chip_smoke.flythrough_cameras(n=4, W=64, H=48, arc_deg=30.0, lifts=())
+    xyz = np.random.default_rng(0).normal(size=(500, 3)).astype(np.float32)
+    chip_smoke.native_readers(str(tmp_path), xyz, path, "CPU")
+    chip_smoke.colmap_database(str(tmp_path), path, "CPU")
+    assert {"points3D.bin", "images.bin", "database.db", "known_pose"} <= set(os.listdir(tmp_path))
+
+
+def test_png_size_reads_the_header(tmp_path):
+    from gaustudio_torch.utils.image import write_png
+
+    write_png(str(tmp_path / "a.png"), np.zeros((5, 7, 3), np.uint8))
+    assert chip_smoke.png_size(str(tmp_path / "a.png")) == (7, 5)
+
+
+def test_kernels_line_counts_phase15s_launches():
+    source = inspect.getsource(chip_smoke.main)
+    assert source.index("path_counts.append(init_full(") < source.index(
+        "path_counts.append(flythrough_full(") < source.index("kernels_report(path_counts")

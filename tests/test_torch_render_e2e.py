@@ -1,6 +1,7 @@
 """The port end to end on the CPU: the vanilla renderer on the mini_scene
-fixture reproduces GOLDEN.json, the gs-render CLI writes one PNG per camera,
-and importing the port never imports jax or gaustudio_tpu."""
+fixture reproduces GOLDEN.json, the gs-render CLI writes one PNG per camera
+(and, with --flythrough, the JAX CLI's frames), and importing the port
+never imports jax or gaustudio_tpu."""
 
 import json
 import os
@@ -10,8 +11,10 @@ import sys
 import numpy as np
 import pytest
 
+import chip_smoke
 from gaustudio_torch import models, renderers
 from gaustudio_torch.datasets.utils import JSON_to_camera
+from gaustudio_torch.models.vanilla import VanillaPointCloud
 from gaustudio_torch.scripts import render as render_cli
 from gaustudio_torch.utils.image import load_image, read_png
 
@@ -77,13 +80,81 @@ def test_gs_render_cli_writes_one_png_per_camera(tmp_path):
     assert img.std() > 5  # a real render, not a blank frame
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--flythrough"], "later slice"),
-], ids=["flythrough"])
-def test_gs_render_cli_refuses_deferred_inputs(argv, match):
-    base = ["-m", os.path.join(FIXTURE, "gaussians.ply"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        render_cli.main(base + argv)
+def _ball_scene(out_dir, n=800, W=48, H=36, cameras=12, lifts=(6,), seed=0):
+    """A PLY of ``n`` Gaussians in a ball of radius 1 about the centre of
+    chip_smoke's flythrough arc (SH degree 0), and a cameras.json of a short
+    arc of that path at WxH, by default with one speed outlier."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    xyz = (d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(0, 1, (n, 1)) ** (1 / 3)
+           + [0.0, 0.0, chip_smoke.FLY_RADIUS]).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    params = {"xyz": xyz, "opacity": np.full((n, 1), 1.0, np.float32),
+              "f_dc": rng.normal(size=(n, 3)).astype(np.float32),
+              "f_rest": np.zeros((n, 45), np.float32),
+              "scale": np.log(rng.uniform(0.04, 0.12, (n, 3))).astype(np.float32),
+              "rot": quats / np.linalg.norm(quats, axis=1, keepdims=True)}
+    ply = os.path.join(out_dir, "ball.ply")
+    VanillaPointCloud.from_jax_params(params, device="cpu").export(ply)
+    cams = os.path.join(out_dir, "path.json")
+    with open(cams, "w") as f:
+        json.dump(chip_smoke.flythrough_cameras(n=cameras, W=W, H=H, arc_deg=12.0, lifts=lifts), f)
+    return ply, cams
+
+
+def test_gs_render_flythrough_matches_the_jax_cli(tmp_path, monkeypatch):
+    """gs-render --flythrough on the CPU against the JAX CLI on the same model
+    and cameras.json: the same frame names (upsample's 8-digit indices), and
+    every frame within one PNG level (the two renders agree within rtol 2e-4
+    / atol 2e-5)."""
+    from gaustudio_tpu.scripts import render as j_render_cli
+
+    ply, cams = _ball_scene(str(tmp_path))
+    path = render_cli.main(["-m", ply, "-s", cams, "--flythrough", "-o", str(tmp_path / "port"),
+                            "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["gs-render", "-m", ply, "-s", cams, "--flythrough", "-o",
+                                      str(tmp_path / "jax")])
+    j_render_cli.main()
+    names = sorted(os.listdir(path))
+    assert names == sorted(os.listdir(tmp_path / "jax" / "images"))
+    assert 10 <= len(names) <= 20
+    assert names == [f"{i:08d}.png" for i in range(len(names))]
+    lit = []
+    for name in names:
+        got = read_png(os.path.join(path, name)).astype(int)
+        want = read_png(str(tmp_path / "jax" / "images" / name)).astype(int)
+        assert got.shape == (36, 48, 3)
+        assert np.abs(got - want).max() <= 1, name
+        lit.append((got.sum(-1) > 0).mean())
+    assert min(lit) > 0.1  # the ball is in every frame
+
+
+def test_gs_render_tries_the_video_and_says_why_it_skips(tmp_path, monkeypatch, capsys):
+    """Where imageio imports, gs-render hands it every frame for render.mp4
+    at --fps, as the JAX CLI does; where it has no backend or does not
+    import, it prints the same "Skipping video export" line."""
+    import types
+
+    written = []
+    fake = types.ModuleType("imageio.v2")
+    fake.mimwrite = lambda path, frames, fps: written.append((path, len(frames), fps,
+                                                              frames[0].dtype, frames[0].shape))
+    monkeypatch.setitem(sys.modules, "imageio", types.ModuleType("imageio"))
+    monkeypatch.setitem(sys.modules, "imageio.v2", fake)
+    ply, cams = _ball_scene(str(tmp_path), n=100, W=16, H=12, cameras=2, lifts=())
+    base = ["-m", ply, "-s", cams, "--device", "cpu", "--fps", "12"]
+    render_cli.main(base + ["-o", str(tmp_path / "a")])
+    assert written == [(str(tmp_path / "a" / "render.mp4"), 2, 12, np.uint8, (12, 16, 3))]
+
+    def no_backend(path, frames, fps):
+        raise ValueError("Could not find a backend")
+
+    fake.mimwrite = no_backend
+    render_cli.main(base + ["-o", str(tmp_path / "b")])
+    assert "Skipping video export: Could not find a backend" in capsys.readouterr().out
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)  # import fails
+    render_cli.main(base + ["-o", str(tmp_path / "c")])
+    assert "Skipping video export: " in capsys.readouterr().out
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
