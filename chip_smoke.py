@@ -130,14 +130,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    written and read back; (g) trace / annotate around three frames (the
    trace holds the 'frame' regions and render_tiles kernel events); (h) the
    rasterizer's debug snapshot: none of a finite frame, one naming the
-   opacities when one is NaN, and the ms debug adds to a frame.
+   opacities when one is NaN, and the ms debug adds to a frame;
+16. multi-device on the one card (gaustudio_torch.parallel): (a) the
+   DPTrainer on make_mesh(1, 1), one rank over NCCL, against the Trainer:
+   30 steps and one densify at 1080p / 300k / SH 3 (phase 7's scene), one
+   camera sequence and seed: final PSNR within 0.1 dB, points within 0.1%,
+   ms/it of both; (b) two ranks sharing the card (gloo, by the backend
+   rule), dp=2 x gs=1 then dp=1 x gs=2: step 1's reduced gradient of each
+   rank's rows against a one-process reference (the mean of the dp views'
+   gradients) at K4's tolerance, the collectives' bytes a step, then 30
+   steps and one densify (PSNR within 0.1 dB of the reference: a
+   one-process dp=2 step, and (a)'s Trainer for gs=2) and ms/it; (c) the
+   camera-parallel render of four 1080p views over the two ranks, the 300k
+   model (K1-K3) and the 200k surfels (K1 without the cull, K2, K5), every
+   buffer against the single-process rasterize() at K3's tolerance; (d)
+   gs-extract-mesh under the two ranks at phase 11's full width, with files
+   (the CLI) and without: wall and busy share, the fused volume against the
+   single-process fusion (weights equal, tsdf within 1e-5), the mesh against
+   phase 11's (F1 >= 0.999 at half a voxel) and the CLI's file names; (e)
+   gs-train --gs_shards 2 under torch.distributed.run with two ranks on
+   mini_scene for 300 iterations (dp=1 x gs=2; rank 0's files; the exported
+   model's PSNR above the initial cloud's). A rank that fails fails the run.
 
-Each path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14 and 15) is driven with every
-launch count set to 0 just before it and read just after; a kernel of the
-path that was not launched fails the run. The report's ``launches`` sums the
-counts of the render, training, mesh, variant, point-extraction,
-initialization and flythrough paths (phases 5, 6, 8, 9, 11, 12, 13, 14 and
-15). The last two lines are
+Each path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14, 15 and 16) is driven with
+every launch count set to 0 just before it and read just after; a kernel of
+the path that was not launched fails the run. The report's ``launches`` sums
+the counts of the render, training, mesh, variant, point-extraction,
+initialization, flythrough and multi-device paths (phases 5, 6, 8, 9 and
+11-16; phase 16's of each rank but (e)'s, whose processes are the CLI's).
+The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device. Imports no jax
@@ -265,12 +286,13 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # --- scenes -------------------------------------------------------------
 
 
-def scene_cameras(W: int, H: int) -> list:
-    """cameras.json entries of three WxH views: bench.py's camera
-    (tan(fov_x/2) = 0.85) yawed by -0.02, 0 and +0.02 rad."""
+def scene_cameras(W: int, H: int, n: int = FULL_VIEWS) -> list:
+    """cameras.json entries of n WxH views: bench.py's camera
+    (tan(fov_x/2) = 0.85) yawed by 0.02 (i - 1) rad (-0.02, 0 and +0.02 for
+    the three of the scenes)."""
     focal = W / (2.0 * 0.85)
     cams = []
-    for i in range(FULL_VIEWS):
+    for i in range(n):
         ang = 0.02 * (i - 1)
         c, s = math.cos(ang), math.sin(ang)
         cams.append({
@@ -3459,6 +3481,502 @@ def flythrough_full(out_dir: str, ply: str, device, card: str) -> dict:
     return counts
 
 
+# --- phase 16: multi-device on the one card -----------------------------------
+
+# 30 steps at 1080p / 300k / SH 3 (phase 7's scene and jitter) with one densify
+# at step 25; the DP runs are held to their one-process references
+DP_STEPS, DP_DENSIFY_AT = 30, 25
+DP_PSNR_TOL = 0.1  # dB, phase 6b's gate
+DP_POINTS_TOL = 1e-3  # relative, points after the densify
+DP_RENDER_VIEWS = 4  # (c): four 1080p views over two ranks
+DP_CLI_ITERS = 300  # (e): gs-train --gs_shards 2 on mini_scene
+
+
+class Views(list):
+    """Cameras as a dataset: the training scenes' extent."""
+
+    cameras_extent = 2.0
+
+
+def dp_config():
+    from gaustudio_torch.pipelines import train as T
+
+    return T.TrainConfig(iterations=DP_STEPS, densify_grad_threshold=1e-5,
+                         densify_from_iter=DP_DENSIFY_AT - 1,
+                         densification_interval=DP_DENSIFY_AT,
+                         opacity_reset_interval=10 ** 9, sh_increase_interval=10 ** 9)
+
+
+def dp_scene(ply: str, cams_path: str, device) -> tuple:
+    """Phase 7's training scene: ground truth rendered through K1-K3 from the
+    model, which is then jittered with a seeded generator on the card."""
+    from gaustudio_torch import renderers
+
+    pcd = load_model(ply, 3, device)
+    cams = load_cameras(cams_path, device)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    for cam in cams:
+        cam.image = renderer.render(cam, pcd)["render"].permute(1, 2, 0).clone()
+    gen = torch.Generator(device=device).manual_seed(0)
+    pcd._xyz = pcd._xyz + torch.randn(pcd._xyz.shape, generator=gen, device=device) * 0.004
+    pcd._f_dc = pcd._f_dc + torch.randn(pcd._f_dc.shape, generator=gen, device=device) * 0.2
+    return pcd, Views(cams)
+
+
+def with_sh3(trainer):
+    """``trainer`` (Trainer or DPTrainer) with its state at SH degree 3."""
+    state = trainer.state
+    if hasattr(state, "shard"):
+        trainer.state = state._replace(shard=state.shard._replace(active_sh_degree=3))
+    else:
+        trainer.state = state._replace(active_sh_degree=3)
+    return trainer
+
+
+def timed_train(trainer) -> tuple:
+    """(history, ms of each step) of ``trainer.train`` for DP_STEPS steps:
+    each step is fenced by the read of its loss in the logging callback."""
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.train(iterations=DP_STEPS, log_every=1,
+                         callback=lambda m: stamps.append(time.perf_counter()))
+    return hist, list(np.diff([t0] + stamps) * 1e3)
+
+
+def final_psnr(state, views, settings) -> float:
+    """Mean PSNR over ``views`` of a full (gathered) state's render."""
+    from gaustudio_torch.pipelines import train as T
+
+    device = state.params["xyz"].device
+    scores = []
+    with torch.no_grad():
+        for cam in views:
+            s = settings._replace(viewmatrix=cam.world_view_transform.to(device),
+                                  projmatrix=cam.full_proj_transform.to(device),
+                                  campos=cam.camera_center.to(device),
+                                  bg=torch.zeros(3, device=device))
+            out = T.render_from_params(state.params, state.active_sh_degree, s)
+            scores.append(psnr(out["render"].permute(1, 2, 0), cam.image.to(device)))
+    return float(np.mean(scores))
+
+
+def single_gradients(state, batch, settings, cfg) -> tuple:
+    """One process's gradient of one view: ({name: [N, ...]}, the viewspace
+    gradient [N, 2], the radii as float), the loss as the training step takes it."""
+    from gaustudio_torch.ops import ssim
+    from gaustudio_torch.pipelines import train as T
+
+    device = batch.gt_image.device
+    s = settings._replace(viewmatrix=batch.viewmatrix, projmatrix=batch.projmatrix,
+                          campos=batch.campos, bg=torch.zeros(3, device=device))
+    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    offset = torch.zeros((state.num_points, 2), device=device, requires_grad=True)
+    out = T.render_from_params(params, state.active_sh_degree, s, means2d_offset=offset)
+    loss = ssim.rgb_loss(out["render"], batch.gt_image, cfg.lambda_dssim)
+    grads = torch.autograd.grad(loss, [params[k] for k in T.PARAMS] + [offset])
+    return dict(zip(T.PARAMS, grads[:-1])), grads[-1], out["radii"].float()
+
+
+def dp_reference_train(pcd, views, cfg, n_dp: int, device):
+    """One process that takes the DP step of n_dp views: each view's gradient
+    alone, meaned; the DP statistics and Adam of train_dp.dp_optimise; the
+    schedule's densify. The same camera draws as the DPTrainer. Returns the
+    final state and the settings."""
+    from gaustudio_torch.parallel.train_dp import dp_optimise
+    from gaustudio_torch.pipelines import train as T
+
+    trainer = with_sh3(T.Trainer(pcd, views, cfg, seed=0, device=device))
+    state, settings = trainer.state, trainer.settings()
+    batches = [trainer.batch(c) for c in views]
+    rng = np.random.default_rng(0)
+    for it in range(1, DP_STEPS + 1):
+        per = [single_gradients(state, batches[int(i)], settings, cfg)
+               for i in rng.integers(len(batches), size=n_dp)]
+        with torch.no_grad():
+            grads = {k: sum(p[0][k] for p in per) / n_dp for k in T.PARAMS}
+            stats = {"vs_grad": sum(p[1] for p in per) / n_dp,
+                     "visible": sum((p[2] > 0).float() for p in per),
+                     "radii": torch.stack([p[2] for p in per]).amax(dim=0)}
+        state = dp_optimise(state, grads, stats, cfg, n_dp)
+        if cfg.densify_from_iter < it < cfg.densify_until_iter \
+                and it % cfg.densification_interval == 0:
+            state, _ = T.densify_and_prune(state, trainer.generator, trainer.extent, cfg,
+                                           it > cfg.opacity_reset_interval)
+    return state, settings
+
+
+def scaled_grad_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (atol + rtol |want|), both scaled by max |want|: at
+    most 1 within K4's tolerance."""
+    scale = float(want.abs().max()) + 1e-30
+    return float(((got - want).abs() / scale / (K4_ATOL + K4_RTOL * want.abs() / scale)).max())
+
+
+def dp_one_rank(ply: str, cams_path: str, device, card: str) -> tuple:
+    """(a) the DPTrainer on make_mesh(1, 1), one rank over NCCL, against the
+    single-device Trainer: 30 steps and one densify, one camera sequence and
+    seed, each trainer twice in turns (Trainer, DP, DP, Trainer) for ms/it.
+    Returns (the first DP run's launches, the Trainer's final PSNR and
+    points)."""
+    import torch.distributed as dist
+
+    from gaustudio_torch.parallel import make_mesh
+    from gaustudio_torch.parallel.train_dp import DPTrainer
+    from gaustudio_torch.pipelines import train as T
+
+    pcd, views = dp_scene(ply, cams_path, device)
+    cfg = dp_config()
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, device=device)
+    backend = dist.get_backend()
+    setup_s = time.perf_counter() - t0
+    runs = {"Trainer": [], "DPTrainer": []}
+    for name in ("Trainer", "DPTrainer", "DPTrainer", "Trainer"):
+        trainer = with_sh3(T.Trainer(pcd, views, cfg, seed=0, device=device)
+                           if name == "Trainer" else DPTrainer(pcd, views, cfg, mesh=mesh, seed=0))
+        reset_counts()
+        _, ms = timed_train(trainer)
+        state = trainer.host_state() if name == "DPTrainer" else trainer.state
+        runs[name].append((statistics.median(ms[5:]), read_counts(), state))
+    settings = trainer.settings()
+    (ms_s, counts_single, single), (ms_s2, _, _) = runs["Trainer"]
+    (ms_d, counts, full), (ms_d2, _, _) = runs["DPTrainer"]
+    psnr_single = final_psnr(single, views, settings)
+    psnr_dp = final_psnr(full, views, settings)
+    n_single, n_dp = single.num_points, full.num_points
+    del runs, single, full, trainer
+    dist.destroy_process_group()
+    say("dp", f"(a) one rank, backend {backend}: DPTrainer on make_mesh(1, 1) against the "
+        f"Trainer, {FULL_W}x{FULL_H}, {pcd.num_points} Gaussians, SH 3, {DP_STEPS} steps, densify "
+        f"at {DP_DENSIFY_AT}: final mean PSNR {psnr_dp:.4f} against {psnr_single:.4f} dB "
+        f"(gap {psnr_dp - psnr_single:+.4f}, tol {DP_PSNR_TOL}); points {n_dp} against "
+        f"{n_single}; ms/it (median of steps 6-{DP_STEPS}, each fenced by its loss's read; in "
+        f"turns Trainer, DP, DP, Trainer) DP {ms_d:.3f} / {ms_d2:.3f}, Trainer {ms_s:.3f} / "
+        f"{ms_s2:.3f}; mesh set-up {setup_s:.3f} s | {card}")
+    say("dp", f"(a) launches: DPTrainer {json.dumps(counts)}; Trainer {json.dumps(counts_single)}")
+    check(abs(psnr_dp - psnr_single) <= DP_PSNR_TOL,
+          f"(a) DPTrainer and Trainer differ by {psnr_dp - psnr_single:.4f} dB")
+    check(abs(n_dp - n_single) <= DP_POINTS_TOL * n_single,
+          f"(a) points after the densify: {n_dp} against {n_single}")
+    check(all(counts[k] == DP_STEPS for k in FORWARD + ("render_tiles_backward",)),
+          f"(a) the DP steps' launches: {counts}")
+    return counts, psnr_single, n_single
+
+
+def dp_train_rank(ply: str, cams_path: str, dev) -> dict:
+    """(b) on one of two ranks that share the card (gloo, by the rule):
+    dp=2 x gs=1, then dp=1 x gs=2. After step 1 the rank's reduced gradient
+    against a one-process reference (the mean of the dp views' gradients);
+    then 30 steps and one densify through the DPTrainer."""
+    import torch.distributed as dist
+
+    from gaustudio_torch.parallel import make_mesh
+    from gaustudio_torch.parallel.mesh import Collectives, init_distributed
+    from gaustudio_torch.parallel.train_dp import DPTrainer, dp_gradients
+    from gaustudio_torch.pipelines import train as T
+
+    device = init_distributed(dev)
+    pcd, views = dp_scene(ply, cams_path, device)
+    cfg = dp_config()
+    out = {}
+    for dp, gs in ((2, 1), (1, 2)):
+        mesh = make_mesh(dp, gs, device=dev)
+        comm = Collectives(mesh)
+        dpt = with_sh3(DPTrainer(pcd, views, cfg, mesh=mesh, seed=0))
+        settings = dpt.settings()
+        draws = np.random.default_rng(0).integers(len(views), size=dp)  # step 1's views
+        batches = [dpt.batch(views[int(i)]) for i in draws]
+        comm.nbytes = 0
+        grads, _, _ = dp_gradients(comm, dpt.state, batches[comm.dp_rank], settings, cfg)
+        step_bytes = comm.nbytes
+        full = dpt.host_state()
+        lo, hi = comm.own_rows(full.num_points)
+        per = [single_gradients(full, b, settings, cfg)[0] for b in batches]
+        errs = {k: scaled_grad_error(grads[k], sum(p[k] for p in per)[lo:hi] / dp)
+                for k in T.PARAMS}
+        del full, per
+        reset_counts()
+        _, ms = timed_train(dpt)
+        counts = read_counts()
+        full = dpt.host_state()
+        out[f"{dp}x{gs}"] = {
+            "backend": dist.get_backend(comm.gs_group if gs > 1 else comm.dp_group),
+            "rows": hi - lo, "grad_err": errs, "step_bytes": step_bytes,
+            "ms": statistics.median(ms[5:]), "psnr": final_psnr(full, views, settings),
+            "points": full.num_points, "launches": counts}
+        del dpt, full
+    return out
+
+
+def dp_render_rank(ply: str, surfel_ply: str, cams4_path: str, dev) -> dict:
+    """(c) on one of two ranks: the camera-parallel render of four 1080p
+    views (two a rank) of the 300k model (K1-K3) and of the 200k-surfel model
+    (K1 without the cull, K2, K5), every buffer against the single-process
+    rasterize() of the same view."""
+    from gaustudio_torch import renderers
+    from gaustudio_torch.ops import rasterize as rast
+    from gaustudio_torch.ops import rasterize_surfel
+    from gaustudio_torch.parallel import make_mesh
+    from gaustudio_torch.parallel.mesh import Collectives, init_distributed
+    from gaustudio_torch.parallel.render_dp import make_dp_render_fn, stack_cameras
+
+    device = init_distributed(dev)
+    comm = Collectives(make_mesh(2, 1, device=dev))
+    cams = load_cameras(cams4_path, device)
+    out = {}
+    for name, path, config in (("vanilla_renderer", ply, None),
+                               ("surfel_renderer", surfel_ply, SURFEL_CONFIG)):
+        pcd = load_model(path, 3, device, config)
+        renderer = renderers.make({"name": name}, device=device)
+        settings, render_fn = renderer.dp_render_closure(cams, pcd)
+        views = stack_cameras(cams)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        block = make_dp_render_fn(comm, settings, render_fn)(views)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        per = len(cams) // comm.dp
+        worst, equal = 0.0, True
+        for j in range(per):
+            cam = cams[comm.dp_rank * per + j]
+            xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
+            st = renderer.make_settings(cam, pcd, device)
+            with torch.inference_mode():
+                if name == "surfel_renderer":
+                    ref = dict(rasterize_surfel.rasterize_surfels(
+                        xyz, opacity, st, scales=scales, rotations=rotations, shs=shs,
+                        active_sh_degree=3))
+                    ref["rendered_final_opacity"] = ref["rendered_alpha"]
+                else:
+                    ref = rast.rasterize(xyz, opacity, st, shs=shs, scales=scales,
+                                         rotations=rotations, active_sh_degree=3)
+            for k, v in block.items():
+                got, want = v[j], ref[k]
+                if got.is_floating_point():
+                    err = (got - want).abs()
+                    check(bool((err <= K3_ATOL + K3_RTOL * want.abs()).all()),
+                          f"(c) {name} {k} of view {comm.dp_rank * per + j}: max|err| "
+                          f"{float(err.max())}")
+                    worst = max(worst, float(err.max()))
+                    equal &= bool(torch.equal(got, want))
+                else:
+                    check(bool(torch.equal(got, want)), f"(c) {name} {k} differs")
+        out[name] = {"keys": sorted(block), "max_err": worst, "equal": equal, "wall_s": wall,
+                     "launches": counts, "views": per}
+        del pcd
+    return out
+
+
+def dp_mesh_rank(mesh_ply: str, mesh_cams: str, out_dir: str, dev) -> dict:
+    """(d) on one of two ranks: gs-extract-mesh with its defaults at phase 11's
+    full width, through the CLI (files written) and through extract_mesh
+    without files: the wall and the device's busy share of each; then, on
+    rank 0, each fused volume against the single-process fusion, each mesh
+    against phase 11's single-process mesh and the file names against its."""
+    import torch.distributed as dist
+
+    from gaustudio_torch import renderers
+    from gaustudio_torch.ops import tsdf
+    from gaustudio_torch.parallel import make_mesh
+    from gaustudio_torch.parallel.mesh import init_distributed
+    from gaustudio_torch.pipelines import mesh_extraction as ME
+    from gaustudio_torch.scripts import extract_mesh as gs_extract_mesh
+    from gaustudio_torch.utils.mesh import load_mesh, mesh_f1_score
+
+    device = init_distributed(dev)
+    rank = dist.get_rank()
+    dp_dir = os.path.join(out_dir, "mesh_full_dp")
+    argv = ["-m", mesh_ply, "-s", mesh_cams, "-o", dp_dir, "--device", device.type]
+    pcd = load_model(mesh_ply, 0, device)
+    renderer = renderers.make({"name": "vanilla_renderer"}, device=device)
+    cams = load_cameras(mesh_cams, device)
+    out = {"rank": rank}
+    meshes = {}
+    for tag, fn in (("files", lambda: gs_extract_mesh.main(argv)),
+                    ("no files", lambda: ME.extract_mesh(pcd, renderer, cams, device=device))):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[tag] = {"wall_s": time.perf_counter() - t0, "launches": read_counts()}
+        out[tag]["busy_s"] = profiled_device_s(fn)
+        meshes[tag] = load_mesh(got) if isinstance(got, str) else got
+
+    # the fused volumes, with and without files, against the single-process fusion
+    views = [c.downsample_scale(2) for c in cams[::3]]
+    lo, hi = tsdf.integrate_points_bounds(pcd.get_attribute("xyz"))
+    fresh = lambda: tsdf.volume_from_bounds(lo, hi, 0.01, 0.04, max_dim=384,  # noqa: E731
+                                            device=device)
+    mesh = make_mesh(dp=2, gs=1, device=dev)
+    vols = {"files": ME._fuse_views_dp(renderer, pcd, views, fresh(),
+                                       os.path.join(out_dir, "mesh_full_dp_volume"), mesh),
+            "no files": ME._fuse_views_dp(renderer, pcd, views, fresh(), None, mesh)}
+    if rank != 0:
+        return out
+    ref = fresh()
+    for camera, depth in ME.iter_fused_depths(renderer, pcd, views):
+        tsdf.integrate(ref, depth, camera.intrinsics, camera.extrinsics)
+    single = load_mesh(os.path.join(out_dir, "mesh_full", "fused_mesh.ply"))
+    tau = 0.5 * float(ref.voxel_size)
+    # what gs-extract-mesh writes (phase 13 adds a cameras.json to phase 11's directory)
+    names = lambda d: sorted(n for n in (os.path.relpath(os.path.join(r, f), d)  # noqa: E731
+                                         for r, _, fs in os.walk(d) for f in fs)
+                             if n == "fused_mesh.ply" or n.split(os.sep)[0] in ("images", "masks"))
+    for tag, vol in vols.items():
+        seen = ref.weight > 0
+        out[tag].update(
+            grid=tuple(ref.tsdf.shape),
+            weights_equal=bool(torch.equal(vol.weight, ref.weight)),
+            tsdf_err=float((vol.tsdf[seen] - ref.tsdf[seen]).abs().max()),
+            faces=len(meshes[tag][1]), single_faces=len(single[1]),
+            same_mesh=bool(np.array_equal(meshes[tag][1], single[1])
+                           and np.array_equal(meshes[tag][0], single[0])),
+            f1=mesh_f1_score(*meshes[tag], *single, tau=tau, n_samples=MESH_F1_SAMPLES)["f1"])
+    got, want = names(dp_dir), names(os.path.join(out_dir, "mesh_full"))
+    out["files"].update(names_equal=got == want, n_files=len(got),
+                        names_differ=sorted(set(got) ^ set(want))[:10])
+    return out
+
+
+def dp_rank_phases(ply: str, cams_path: str, surfel_ply: str, cams4_path: str,
+                   mesh_ply: str, mesh_cams: str, out_dir: str, dev=None) -> dict:
+    """(b), (c) and (d) on one of the two ranks (``dev``: None, each rank on
+    the card of its local rank; "cpu" for a rehearsal on the CPU)."""
+    return {"train": dp_train_rank(ply, cams_path, dev),
+            "render": dp_render_rank(ply, surfel_ply, cams4_path, dev),
+            "mesh": dp_mesh_rank(mesh_ply, mesh_cams, out_dir, dev)}
+
+
+def dp_cli(out_dir: str, device, card: str) -> None:
+    """(e) gs-train --gs_shards 2 under torch.distributed.run with two ranks
+    on the card, on mini_scene (phase 6's copy) for DP_CLI_ITERS iterations:
+    the mesh line, rank 0's files, and the exported model's PSNR against the
+    initial cloud's."""
+    from gaustudio_torch import models
+    from gaustudio_torch.utils.ply import fetch_ply
+
+    src = os.path.join(out_dir, "train_src")
+    out = os.path.join(out_dir, "train_out_dp")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           "-m", "gaustudio_torch.scripts.train", "-s", src, "-o", out, "--dataset", "vanilla",
+           "--iterations", str(DP_CLI_ITERS), "--save_every", str(DP_CLI_ITERS),
+           "--gs_shards", "2", "--device", device.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(e) torchrun gs-train exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if "Multi-device" in ln or "torch.distributed" in ln]
+    check(any("dp=1 x gs=2" in ln for ln in lines), f"(e) no 'dp=1 x gs=2' line: {proc.stdout}")
+    ply = os.path.join(out, "point_cloud", f"iteration_{DP_CLI_ITERS}", "point_cloud.ply")
+    check(os.path.exists(ply) and os.path.exists(os.path.join(out, "cameras.json")),
+          "(e) rank 0 wrote no point_cloud.ply or cameras.json")
+    cams = load_cameras(os.path.join(FIXTURE, "cameras.json"), device)
+    xyz, rgb, _ = fetch_ply(os.path.join(src, "sparse", "0", "points3D.ply"))
+    init = models.make({"name": "vanilla_pcd"}, device=device)
+    init.create_from_attribute(xyz=xyz, rgb=rgb)
+    before = float(np.mean(render_psnr(init, cams, device)))
+    after = float(np.mean(render_psnr(load_model(ply, 0, device), cams, device)))
+    say("dp", f"(e) torchrun --nproc_per_node 2 gs-train --gs_shards 2, {DP_CLI_ITERS} "
+        f"iterations on mini_scene: {' / '.join(lines)}; {wall:.2f} s wall (two processes "
+        f"time-share the card); mean PSNR over {len(cams)} views: initial {before:.4f} dB, "
+        f"exported {after:.4f} dB | {card}")
+    check(after > before, f"(e) the exported model's PSNR {after:.4f} <= the initial {before:.4f}")
+
+
+def multi_device(out_dir: str, ply: str, cams_path: str, surfel_ply: str, device,
+                 card: str) -> list:
+    """Phase 16: (a) one rank over NCCL, (b)-(d) two ranks sharing the card
+    over gloo, (e) the CLI under torchrun. Returns the launch counts of the
+    paths: (a)'s DP run and each rank's (b)-(d)."""
+    from gaustudio_torch.parallel.dryrun import run_ranks
+
+    t_phase = time.perf_counter()
+    counts_a, psnr_single, n_single = dp_one_rank(ply, cams_path, device, card)
+    torch.cuda.empty_cache()
+
+    cams4_path = os.path.join(out_dir, "dp_render_cameras.json")
+    with open(cams4_path, "w") as f:
+        json.dump(scene_cameras(FULL_W, FULL_H, DP_RENDER_VIEWS), f)
+    mesh_ply = os.path.join(out_dir, "mesh_full_scene.ply")
+    mesh_cams = os.path.join(out_dir, "mesh_full_cameras.json")
+    t0 = time.perf_counter()
+    dev = None if device.type == "cuda" else device.type
+    ranks = run_ranks(2, dp_rank_phases, ply, cams_path, surfel_ply, cams4_path, mesh_ply,
+                      mesh_cams, out_dir, dev, device=dev, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    say("dp", "(b)-(d) two ranks time-share the one card, so their ms/it and walls are no "
+        f"scaling figure; the two ranks took {ranks_s:.2f} s (spawn, kernel load, scenes)")
+
+    # (b) against the one-process references: dp=2 emulated here, gs=2 (a)'s Trainer
+    pcd, views = dp_scene(ply, cams_path, device)
+    ref_state, settings = dp_reference_train(pcd, views, dp_config(), 2, device)
+    refs = {"2x1": (final_psnr(ref_state, views, settings), ref_state.num_points),
+            "1x2": (psnr_single, n_single)}
+    del pcd, views, ref_state
+    for shape in ("2x1", "1x2"):
+        for r, res in enumerate(ranks):
+            b = res["train"][shape]
+            worst = max(b["grad_err"].values())
+            say("dp", f"(b) {shape} rank {r}, backend {b['backend']}: {b['rows']} rows; step 1's "
+                f"reduced gradient against the one-process reference, max |err| / (atol + rtol "
+                f"|ref|) after scaling by the reference's max |g|: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in b["grad_err"].items())
+                + f" (at most 1: rtol {K4_RTOL}, atol {K4_ATOL}); collectives "
+                f"{b['step_bytes']} bytes a step from this rank; {b['ms']:.3f} ms/it; final "
+                f"PSNR {b['psnr']:.4f} dB against the reference's {refs[shape][0]:.4f}; points "
+                f"{b['points']} against {refs[shape][1]}; launches {json.dumps(b['launches'])} "
+                f"| {card}")
+            check(worst <= 1.0, f"(b) {shape} rank {r}: gradient off the reference: {b['grad_err']}")
+            check(abs(b["psnr"] - refs[shape][0]) <= DP_PSNR_TOL,
+                  f"(b) {shape} rank {r}: PSNR {b['psnr']:.4f} against {refs[shape][0]:.4f}")
+            check(b["launches"]["render_tiles_backward"] == DP_STEPS,
+                  f"(b) {shape} rank {r}: launches {b['launches']}")
+    for r, res in enumerate(ranks):
+        for name, c in res["render"].items():
+            path = SURFEL_FORWARD if name == "surfel_renderer" else FORWARD
+            say("dp", f"(c) {name} rank {r}: {c['views']} of {DP_RENDER_VIEWS} views at "
+                f"{FULL_W}x{FULL_H} in {c['wall_s'] * 1e3:.2f} ms; buffers {c['keys']} against "
+                f"the single-process rasterize(): max|err| {c['max_err']:.3e}, bitwise equal "
+                f"{c['equal']}; launches {json.dumps(c['launches'])} | {card}")
+            check(all(c["launches"][k] == c["views"] for k in path),
+                  f"(c) {name} rank {r}: launches {c['launches']}")
+    m = ranks[0]["mesh"]
+    for tag in ("files", "no files"):
+        d = m[tag]
+        say("dp", f"(d) gs-extract-mesh under 2 ranks, {tag}: {d['wall_s']:.3f} s wall, device "
+            f"busy {d['busy_s']:.3f} s of a second run (rank 0), busy share "
+            f"{d['busy_s'] / d['wall_s']:.4f}; grid {d['grid']}; weights equal "
+            f"{d['weights_equal']}, tsdf max|err| {d['tsdf_err']:.3e} where the weight > 0; "
+            f"{d['faces']} faces against the single process's {d['single_faces']} (vertices and "
+            f"faces equal: {d['same_mesh']}), F1 {d['f1']:.6f} at half a voxel "
+            f"({MESH_F1_SAMPLES} samples); rank 0 launches "
+            f"{json.dumps(d['launches'])}, rank 1 {json.dumps(ranks[1]['mesh'][tag]['launches'])}"
+            f" | {card}")
+        check(d["weights_equal"] and d["tsdf_err"] <= 1e-5 and d["f1"] >= 0.999,
+              f"(d) {tag}: the fused volume or mesh is off the single process's: {d}")
+    check(m["files"]["names_equal"], "(d) the 2-rank CLI wrote other file names than the "
+          f"single process: {m['files']['names_differ']}")
+    say("dp", f"(d) the 2-rank CLI wrote the single process's {m['files']['n_files']} file names")
+
+    dp_cli(out_dir, device, card)
+    say("dp", f"phase 16: {time.perf_counter() - t_phase:.1f} s wall | {card}")
+    paths = [counts_a]
+    for res in ranks:
+        paths.append(res["train"]["2x1"]["launches"])
+        paths.append(res["train"]["1x2"]["launches"])
+        paths.extend(c["launches"] for c in res["render"].values())
+        paths.extend(res["mesh"][tag]["launches"] for tag in ("files", "no files"))
+    return paths
+
+
 # --- the kernels of two checkouts, in turns ---------------------------------
 
 # (key of the --time-backward line, unit): K1 with the cull (1080p/300k) and
@@ -3730,6 +4248,11 @@ def main(argv=None) -> int:
     # phase 15: gs-render --flythrough of the 300k scene at 1080p (K1-K3), the
     # native COLMAP readers, colmap_db, trace / annotate and the debug snapshot
     path_counts.append(flythrough_full(args.out, ply, device, card))
+
+    # phase 16: multi-device on the one card: the DPTrainer on one rank over
+    # NCCL; two ranks sharing the card over gloo for the sharded step, the
+    # camera-parallel render and gs-extract-mesh; gs-train under torchrun
+    path_counts.extend(multi_device(args.out, ply, cams_path, surfel_ply, device, card))
 
     report = kernels_report(path_counts, errs, times, bounds)
     check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")

@@ -120,6 +120,14 @@ def integrate(volume: TSDFVolume, depth, intrinsics, world_to_cam,
     return volume
 
 
+def integrate_batch(volume: TSDFVolume, depths, intrinsics, world_to_cam) -> TSDFVolume:
+    """Fuse a stack of views ([B, H, W] depths, [B, 3, 3], [B, 4, 4]) one
+    after the other with :func:`integrate`, in place; returns the volume."""
+    for depth, K, E in zip(depths, intrinsics, world_to_cam):
+        integrate(volume, depth, K, E)
+    return volume
+
+
 def _f32(a, device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.array(a, np.float32))

@@ -1,11 +1,12 @@
 """gs-extract-mesh pipeline: multi-view depth render -> TSDF -> mesh
-(port of gaustudio_tpu/pipelines/mesh_extraction.py, single device).
+(port of gaustudio_tpu/pipelines/mesh_extraction.py).
 
 Median-depth renders masked where the final opacity is below 0.5, fused into
 a TSDF grid on the device, marching-tetrahedra extraction, an optional
 connected-component cleanup, and the mvs-texturing output layout (images/,
-masks/, per-view .cam files). Camera-parallel fusion over several devices
-belongs to a later slice.
+masks/, per-view .cam files). In a process group of more than one rank
+(torchrun) the views are rendered camera-parallel over the ranks
+(``_fuse_views_dp``) and rank 0 marches and writes the mesh.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaustudio_torch.cameras import Camera
 from gaustudio_torch.ops import mcubes, tsdf
@@ -73,6 +75,56 @@ def iter_fused_depths(renderer, pcd, cameras: List[Camera], work_dir=None):
             yield camera, depth
 
 
+def _fuse_views_dp(renderer, pcd, cameras: List[Camera], vol, work_dir, mesh):
+    """Camera-parallel fusion over the ranks of ``mesh``'s dp axis: each rank
+    renders its block of the views.
+
+    The views are grouped by (W, H, FoVx, FoVy), one closure a group (the
+    camera-parallel render swaps only the view, projection and camera
+    centre). Without ``work_dir`` each group is one make_dp_fuse_fn call
+    (the volumes summed over dp). With ``work_dir`` the views render dp at a
+    time, every rank gathers the chunk's depths and integrates them in view
+    order (as the JAX package's ``integrate_batch``), and each rank writes
+    its own views' files under their global names."""
+    from gaustudio_torch.parallel import render_dp
+    from gaustudio_torch.parallel.mesh import Collectives
+
+    comm = Collectives(mesh)
+    groups = {}
+    for gi, c in enumerate(cameras):
+        key = (int(c.image_width), int(c.image_height), float(c.FoVx), float(c.FoVy))
+        groups.setdefault(key, []).append((gi, c))
+    if work_dir is not None:
+        os.makedirs(os.path.join(work_dir, "images"), exist_ok=True)
+        os.makedirs(os.path.join(work_dir, "masks"), exist_ok=True)
+
+    device = vol.tsdf.device
+    for indexed in groups.values():
+        group = [c for _, c in indexed]
+        settings, render_fn = renderer.dp_render_closure(group, pcd)
+        if work_dir is None:
+            fuse = render_dp.make_dp_fuse_fn(comm, settings, render_fn)
+            vol = fuse(vol, render_dp.stack_cameras(group, pad_to=comm.dp, device=device))
+            continue
+        render = render_dp.make_dp_render_fn(comm, settings, render_fn)
+        with BackgroundWriter() as writer:
+            for start in range(0, len(indexed), comm.dp):
+                chunk = indexed[start:start + comm.dp]
+                rc = render_dp.stack_cameras([c for _, c in chunk], pad_to=comm.dp,
+                                             device=device)
+                out = render(rc)  # this rank's view of the chunk
+                invalid = out["rendered_final_opacity"][:, 0] < 0.5
+                depth = torch.where(invalid, 0.0, out["rendered_median_depth"][:, 0])
+                depths = comm.gather_dp(depth) * rc.valid[:, None, None]
+                tsdf.integrate_batch(vol, depths, rc.intrinsics, rc.world_to_cam)
+                if comm.dp_rank < len(chunk):  # a pad view writes nothing
+                    gi, camera = chunk[comm.dp_rank]
+                    writer.submit(_save_view_files, work_dir, camera.image_name or f"view_{gi:04d}",
+                                  camera, invalid[0].cpu().numpy(),
+                                  out["render"][0].permute(1, 2, 0).cpu().numpy())
+    return vol
+
+
 def render_fused_depths(renderer, pcd, cameras: List[Camera], work_dir=None):
     """List-returning wrapper of iter_fused_depths."""
     return list(iter_fused_depths(renderer, pcd, cameras, work_dir))
@@ -97,6 +149,11 @@ def extract_mesh(
     the current CUDA device) sized from the Gaussians' robust bounds; then
     marching tetrahedra and, with ``clean``, the component cleanup.
 
+    In a process group of more than one rank, a renderer that does not
+    decode its Gaussians per camera fuses camera-parallel
+    (``_fuse_views_dp``), and only rank 0 marches: the other ranks return
+    None.
+
     Returns (vertices, faces); writes fused_mesh.ply and the per-view files
     when ``work_dir`` is given.
     """
@@ -105,9 +162,18 @@ def extract_mesh(
     lo, hi = tsdf.integrate_points_bounds(pcd.get_attribute("xyz"))
     vol = tsdf.volume_from_bounds(lo, hi, voxel_size, sdf_trunc, max_dim=max_dim,
                                   device=device)
-    # render and integrate view by view: one depth map on the device at a time
-    for camera, depth in iter_fused_depths(renderer, pcd, cams, work_dir):
-        tsdf.integrate(vol, depth, camera.intrinsics, camera.extrinsics)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1 and not renderer.view_dependent_gaussians:
+        from gaustudio_torch.parallel import make_mesh
+
+        vol = _fuse_views_dp(renderer, pcd, cams, vol, work_dir,
+                             make_mesh(dp=world, gs=1, device=device))
+        if dist.get_rank() != 0:
+            return None
+    else:
+        # render and integrate view by view: one depth map on the device at a time
+        for camera, depth in iter_fused_depths(renderer, pcd, cams, work_dir):
+            tsdf.integrate(vol, depth, camera.intrinsics, camera.extrinsics)
 
     verts, faces = mcubes.marching_tetrahedra(
         vol.tsdf, iso=0.0, weight=vol.weight, min_weight=min_weight,

@@ -109,10 +109,18 @@ def init_state(pcd, device=None) -> TrainState:
     return _new_state(params)
 
 
-def state_from_jax(jax_state, device=None) -> TrainState:
+def state_from_jax(jax_state, device=None, mesh=None):
     """The port's state from a JAX ``GaussianTrainState`` on ``device`` (None:
     the current CUDA device): its arrays are read with ``np.asarray``, and
-    only its ``valid`` rows are kept."""
+    only its ``valid`` rows are kept.
+
+    A sharded JAX state (gathered by the JAX ``train_dp.replicate_state``)
+    reads the same way. With ``mesh`` (the port's ("dp", "gs") mesh) this
+    returns this rank's rows as a ``parallel.train_dp.DPState``."""
+    if mesh is not None:
+        from gaustudio_torch.parallel.train_dp import shard_state
+
+        return shard_state(mesh, state_from_jax(jax_state, device))
     device = resolve_device(device)
     valid = np.asarray(jax_state.valid)
     rows = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a)[valid])).to(device)  # noqa: E731
@@ -185,6 +193,15 @@ def train_step(state: TrainState, batch: CameraBatch, settings: RasterizeSetting
     return optimise(state, params, offset, loss, out["radii"], cfg), metrics
 
 
+def learning_rates(cfg: TrainConfig, step: int) -> Dict[str, float]:
+    """Each attribute's learning rate at ``step``: xyz on Inria's decay."""
+    return {
+        "xyz": exp_lr_schedule(cfg.lr_xyz_init, cfg.lr_xyz_final, cfg.lr_xyz_max_steps)(step),
+        "f_dc": cfg.lr_f_dc, "f_rest": cfg.lr_f_rest, "opacity": cfg.lr_opacity,
+        "scale": cfg.lr_scale, "rot": cfg.lr_rot,
+    }
+
+
 def optimise(state: TrainState, params, offset, loss, radii, cfg: TrainConfig) -> TrainState:
     """The gradients of ``loss`` in ``params`` and ``offset`` (the viewspace
     points) -> the densification statistics of the visible rows and one Adam
@@ -200,14 +217,8 @@ def optimise(state: TrainState, params, offset, loss, radii, cfg: TrainConfig) -
             visible, torch.linalg.vector_norm(vs_grads, dim=-1), 0.0)
         denom = state.denom + visible.to(torch.float32)
         max_radii2d = torch.maximum(state.max_radii2d, radii.to(torch.float32))
-        lrs = {
-            "xyz": exp_lr_schedule(cfg.lr_xyz_init, cfg.lr_xyz_final,
-                                   cfg.lr_xyz_max_steps)(state.step),
-            "f_dc": cfg.lr_f_dc, "f_rest": cfg.lr_f_rest, "opacity": cfg.lr_opacity,
-            "scale": cfg.lr_scale, "rot": cfg.lr_rot,
-        }
         new_params, new_opt = adam_update(dict(zip(PARAMS, grads)), state.opt,
-                                          state.params, lrs)
+                                          state.params, learning_rates(cfg, state.step))
     return state._replace(params=new_params, opt=new_opt, step=state.step + 1,
                           xyz_grad_accum=xyz_grad_accum, denom=denom, max_radii2d=max_radii2d)
 

@@ -18,6 +18,9 @@ from gaustudio_torch.utils.misc import resolve_device
 
 class BaseRenderer:
     default_conf: Dict = {}
+    # a renderer that decodes its Gaussians per camera (Scaffold-GS) cannot
+    # hoist them once for a camera-parallel batch
+    view_dependent_gaussians = False
 
     def __init__(self, config=None, device=None):
         """``device``: where the renderer's own tensors live; None is the
@@ -68,3 +71,29 @@ class BaseRenderer:
             "n_contrib": out["n_contrib"],
             "num_rendered": out["num_rendered"],
         }
+
+    def dp_render_closure(self, cameras, gaussian_model):
+        """``(settings, render_fn)`` for the camera-parallel renderers
+        (parallel/render_dp.make_dp_render_fn / make_dp_fuse_fn).
+
+        The Gaussian properties are computed once, from ``cameras[0]``, which
+        holds only where ``view_dependent_gaussians`` is False. All cameras
+        must share one resolution and FoV (callers group by (W, H, FoVx,
+        FoVy)); ``render_fn(settings)`` returns rasterize()'s outputs."""
+        if self.view_dependent_gaussians:
+            raise ValueError(f"{type(self).__name__} decodes Gaussians per camera; "
+                             "camera-parallel property hoisting is unsupported")
+        with torch.inference_mode():
+            (xyz, shs, colors_precomp, opacity, scales, rotations, cov3D_precomp) = (
+                self.get_gaussians_properties(cameras[0], gaussian_model))
+        settings = self.make_settings(cameras[0], gaussian_model, xyz.device)
+        active_deg = getattr(gaussian_model, "active_sh_degree", None)
+
+        @torch.inference_mode()
+        def render_fn(s):
+            return rast.rasterize(
+                xyz, opacity, s, shs=shs, colors_precomp=colors_precomp, scales=scales,
+                rotations=rotations, cov3D_precomp=cov3D_precomp,
+                active_sh_degree=active_deg if shs is not None else None)
+
+        return settings, render_fn

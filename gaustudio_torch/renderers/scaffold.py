@@ -28,6 +28,7 @@ def feature_bank_mix(feat: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
 
 @renderers.register("scaffold_renderer")
 class ScaffoldRenderer(BaseRenderer):
+    view_dependent_gaussians = True
     default_conf = {
         "kernel_size": 0.0,
         "scaling_modifier": 1.0,

@@ -49,6 +49,26 @@ class SurfelRenderer(BaseRenderer):
             shs = gaussian_model.get_features
         return xyz, shs, colors_precomp, opacity, scales, rotations, None
 
+    def dp_render_closure(self, cameras, gaussian_model):
+        """The camera-parallel closure over the surfel rasterizer; it maps
+        ``rendered_alpha`` to the fusion's ``rendered_final_opacity``."""
+        with torch.inference_mode():
+            xyz, shs, colors_precomp, opacity, scales, rotations, _ = (
+                self.get_gaussians_properties(cameras[0], gaussian_model))
+        settings = self.make_settings(cameras[0], gaussian_model, xyz.device)
+        active_deg = getattr(gaussian_model, "active_sh_degree", None)
+
+        @torch.inference_mode()
+        def render_fn(s):
+            out = dict(rasterize_surfel.rasterize_surfels(
+                xyz, opacity, s, scales=scales, rotations=rotations, shs=shs,
+                colors_precomp=colors_precomp,
+                active_sh_degree=active_deg if shs is not None else None))
+            out["rendered_final_opacity"] = out["rendered_alpha"]
+            return out
+
+        return settings, render_fn
+
     @torch.inference_mode()
     def render(self, viewpoint_camera, gaussian_model):
         """Render one camera; returns the JAX surfel renderer's output dict."""

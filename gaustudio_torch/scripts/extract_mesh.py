@@ -9,6 +9,12 @@ for. The cameras come from ``-s``: a cameras.json, or a COLMAP scene
 directory; by default the cameras.json beside the model. Writes
 ``fused_mesh.ply``, ``images/<name>.png``, ``images/<name>.cam`` and
 ``masks/<name>.png`` to ``-o`` (default ``<model>/renders/iteration_N``).
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+gaustudio_torch.scripts.extract_mesh ...`` each rank runs on the card
+``LOCAL_RANK`` names (``--device cpu``: on the CPU, over gloo), the views
+are rendered and fused camera-parallel, each rank writes its own views'
+files, and rank 0 marches and writes the mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ def main(argv=None):
     from gaustudio_torch.utils.misc import searchForMaxIteration
 
     device = _device(args)
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:  # a torchrun launch: LOCAL_RANK picks the card
+        from gaustudio_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(device if device.type == "cpu" else None)
     config_path = args.config if os.path.exists(args.config) else builtin_config_path(args.config)
     config = load_config(config_path, cli_args=extras)
     if args.white_background:
@@ -85,10 +95,13 @@ def main(argv=None):
         cameras = dataset.all_cameras
 
     os.makedirs(work_dir, exist_ok=True)
-    verts, faces = extract_mesh(
+    mesh = extract_mesh(
         pcd, renderer, cameras, work_dir=work_dir, voxel_size=args.voxel_size,
         sdf_trunc=args.sdf_trunc, min_weight=args.min_weight, stride=args.stride,
         downsample=args.resolution, clean=args.clean, device=device)
+    if mesh is None:  # a rank other than 0 of a camera-parallel run
+        return None
+    verts, faces = mesh
     mesh_path = os.path.join(work_dir, "fused_mesh.ply")
     print(f"Extracted mesh: {len(verts)} vertices, {len(faces)} faces -> {mesh_path}")
     return mesh_path

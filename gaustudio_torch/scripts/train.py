@@ -15,8 +15,16 @@ and ``cameras.json``. The config picks the trainer as the JAX CLI does: a
 heads in ``point_cloud.ply.mlps.npz``), a ``surfel_renderer`` (``--config
 2dgs``) with the SurfelTrainer, and every other config (vanilla, mip,
 gsplat) with the vanilla Trainer. A config that no trainer takes (``pcd``,
-a plain point cloud) raises ValueError; multi-device training belongs to a
-later slice of the port and raises NotImplementedError.
+a plain point cloud) raises ValueError.
+
+Multi-rank training: under ``python -m torch.distributed.run
+--nproc_per_node N -m gaustudio_torch.scripts.train ...`` with N > 1 and no
+``--no_dp``, a vanilla-trainer config trains with the DPTrainer on a
+("dp", "gs") mesh: gs is 2 when N is even and ``--gs_shards`` is unset, else
+``--gs_shards`` or 1 (1 where it does not divide N). Each rank runs on the
+card ``LOCAL_RANK`` names (``--device cpu``: on the CPU, over gloo); rank 0
+prints and writes the files. 2DGS and Scaffold-GS train on one device, as
+in the JAX CLI; in one process ``--gs_shards`` is ignored.
 """
 
 from __future__ import annotations
@@ -29,10 +37,19 @@ import numpy as np
 from gaustudio_torch.scripts.render import _device
 
 
-def _refuse_deferred(args) -> None:
-    if args.gs_shards is not None:
-        raise NotImplementedError(
-            "--gs_shards: multi-device training comes to the port with slice 8")
+def _world() -> int:
+    """Ranks of the torchrun launch (1 without one)."""
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def _writer() -> bool:
+    """Whether this process prints and writes files: rank 0 of a launch."""
+    return int(os.environ.get("RANK", 0)) == 0
+
+
+def say(msg: str) -> None:
+    if _writer():
+        print(msg, flush=True)
 
 
 def _refuse_untrainable(config) -> None:
@@ -71,6 +88,8 @@ def _train_scaffold(args, config, dataset, pcd, device):
               "(anchor+MLP state); use the model config's resume_path to reload a ply")
 
     def save(iteration):
+        if not _writer():
+            return
         out = os.path.join(args.output_dir, "point_cloud", f"iteration_{iteration}")
         os.makedirs(out, exist_ok=True)
         TSc.state_to_scaffold_model(trainer.state, pcd)
@@ -78,15 +97,16 @@ def _train_scaffold(args, config, dataset, pcd, device):
         dataset.export(os.path.join(args.output_dir, "cameras.json"))
 
     def log(m):
-        print(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
-              f"anchors {int(m['num_points'])}", flush=True)
+        say(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
+            f"anchors {int(m['num_points'])}")
         if m["iter"] % args.save_every == 0:
             save(m["iter"])
 
     history = trainer.train(iterations=args.iterations, log_every=100, callback=log,
-                            metrics_path=os.path.join(args.output_dir, "metrics.jsonl"))
+                            metrics_path=(os.path.join(args.output_dir, "metrics.jsonl")
+                                          if _writer() else None))
     save(args.iterations)
-    print(f"Training done -> {args.output_dir}")
+    say(f"Training done -> {args.output_dir}")
     return history
 
 
@@ -110,9 +130,10 @@ def main(argv=None):
                         help="checkpoint file (output_dir/ckpt/step_N.pt) to restore the "
                              "whole training state from")
     parser.add_argument("--no_dp", action="store_true",
-                        help="single-device training (the port trains on one device)")
+                        help="train on one device even under torchrun with several ranks")
     parser.add_argument("--gs_shards", default=None, type=int,
-                        help="Gaussian-axis shards for multi-device training (slice 8)")
+                        help="Gaussian-axis shards for multi-rank training (default: 2 when "
+                             "the number of ranks is even, else 1)")
     parser.add_argument("--checkpoint_every", default=0, type=int,
                         help="save a full training checkpoint every N iterations")
     args, extras = parser.parse_known_args(argv)
@@ -122,11 +143,14 @@ def main(argv=None):
     from gaustudio_torch.pipelines import train as T
     from gaustudio_torch.utils.ply import fetch_ply
 
-    _refuse_deferred(args)
     config_path = args.config if os.path.exists(args.config) else builtin_config_path(args.config)
     config = load_config(config_path, cli_args=extras)
     _refuse_untrainable(config)
     device = _device(args)
+    if _world() > 1:  # a torchrun launch: LOCAL_RANK picks the card
+        from gaustudio_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(device if device.type == "cpu" else None)
 
     dataset = datasets.make({"name": args.dataset, "source_path": args.source_path,
                              "resolution": args.resolution,
@@ -147,7 +171,7 @@ def main(argv=None):
         pcd.create_from_attribute(xyz=xyz, rgb=rgb / 255.0)
     else:
         n0 = args.init_points
-        print(f"No sparse points found; random init of {n0} points")
+        say(f"No sparse points found; random init of {n0} points")
         rng = np.random.default_rng(args.seed)
         r = dataset.cameras_extent
         xyz = rng.uniform(-r / 2, r / 2, (n0, 3)).astype(np.float32)
@@ -175,36 +199,55 @@ def main(argv=None):
                                     lambda_normal=float(tr_conf.get("lambda_normal", 0.05)),
                                     lambda_dist=float(tr_conf.get("lambda_dist", 0.0)))
         trainer = TS.SurfelTrainer(pcd, dataset, scfg, seed=args.seed, device=device)
+    elif _world() > 1 and not args.no_dp:
+        from gaustudio_torch.parallel import make_mesh
+        from gaustudio_torch.parallel.train_dp import DPTrainer
+
+        n = _world()
+        gs = 2 if n % 2 == 0 and args.gs_shards is None else (args.gs_shards or 1)
+        if n % gs != 0:
+            gs = 1
+        trainer = DPTrainer(pcd, dataset, cfg, mesh=make_mesh(dp=n // gs, gs=gs, device=device),
+                            seed=args.seed)
+        say(f"Multi-device training: dp={n // gs} x gs={gs}")
     else:
         trainer = T.Trainer(pcd, dataset, cfg, seed=args.seed, device=device)
     if args.resume:
         trainer.restore(args.resume)
-        print(f"Resumed training state from {args.resume} (step {trainer.state.step}, "
-              f"{trainer.state.num_points} points)")
+        say(f"Resumed training state from {args.resume} (step {trainer.state.step}, "
+            f"{trainer.state.num_points} points)")
 
     def save(iteration):
+        # the DPTrainer gathers its shards on every rank; rank 0 writes
+        state = trainer.host_state() if hasattr(trainer, "host_state") else trainer.state
+        if not _writer():
+            return
         out = os.path.join(args.output_dir, "point_cloud", f"iteration_{iteration}")
         os.makedirs(out, exist_ok=True)
-        T.state_to_model(trainer.state, pcd)
+        T.state_to_model(state, pcd)
         pcd.export(os.path.join(out, "point_cloud.ply"))
         dataset.export(os.path.join(args.output_dir, "cameras.json"))
 
     def log(m):
-        print(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
-              f"points {int(m['num_points'])}", flush=True)
+        say(f"iter {m['iter']:6d}  loss {m['loss']:.4f}  psnr {m['psnr']:.2f}  "
+            f"points {int(m['num_points'])}")
         if m["iter"] % args.save_every == 0:
             save(m["iter"])
 
+    # under torchrun a single-device trainer of rank 0 writes the files; the
+    # DPTrainer gathers on every rank and writes on rank 0 itself
+    writes = _writer() or hasattr(trainer, "host_state")
     ckpt_kw = {}
-    if args.checkpoint_every:
+    if args.checkpoint_every and writes:
         ckpt_kw = dict(checkpoint_dir=os.path.join(args.output_dir, "ckpt"),
                        checkpoint_every=args.checkpoint_every)
     # metrics.jsonl, and the snapshot of a non-finite loss, land under -o
     history = trainer.train(iterations=args.iterations, log_every=100, callback=log,
-                            metrics_path=os.path.join(args.output_dir, "metrics.jsonl"),
+                            metrics_path=(os.path.join(args.output_dir, "metrics.jsonl")
+                                          if writes else None),
                             **ckpt_kw)
     save(args.iterations)
-    print(f"Training done -> {args.output_dir}")
+    say(f"Training done -> {args.output_dir}")
     return history
 
 

@@ -3,7 +3,8 @@ bench.make_scene, its imports, the hard cases of phase 3 (through the plain
 versions, which the kernels are held to on the card), K2's cases, phase
 11's scene and cameras against bench_all.py's, phase 13's pure helpers,
 phase 15's host steps (its points3D.bin writer, the native readers and the
-COLMAP database on a small path) and the kernels line's launch sum."""
+COLMAP database on a small path), phase 16's one-process references and
+cameras, and the kernels line's launch sum."""
 
 import ast
 import inspect
@@ -416,3 +417,40 @@ def test_kernels_line_counts_phase15s_launches():
     source = inspect.getsource(chip_smoke.main)
     assert source.index("path_counts.append(init_full(") < source.index(
         "path_counts.append(flythrough_full(") < source.index("kernels_report(path_counts")
+
+
+def test_kernels_line_counts_phase16s_launches():
+    source = inspect.getsource(chip_smoke.main)
+    assert source.index("path_counts.append(flythrough_full(") < source.index(
+        "path_counts.extend(multi_device(") < source.index("kernels_report(path_counts")
+
+
+def test_phase16_render_cameras_extend_the_scenes_three_views():
+    four = chip_smoke.scene_cameras(64, 48, chip_smoke.DP_RENDER_VIEWS)
+    assert four[:3] == chip_smoke.scene_cameras(64, 48) and len(four) == 4
+
+
+def test_phase16_one_process_dp_reference_at_dp_1_is_the_trainer(tmp_path, monkeypatch):
+    """Phase 16 (b) holds dp = 2 to a one-process reference of the DP step;
+    at dp = 1 that reference must be the Trainer itself: same camera draws,
+    statistics, Adam and densify (a short schedule on a small scene)."""
+    from gaustudio_torch.pipelines import train as T
+
+    monkeypatch.setattr(chip_smoke, "DP_STEPS", 6)
+    monkeypatch.setattr(chip_smoke, "DP_DENSIFY_AT", 5)
+    ply, cams = chip_smoke.write_full_scene(str(tmp_path), n=400, W=32, H=24)
+    pcd, views = chip_smoke.dp_scene(ply, cams, CPU)
+    ref, _ = chip_smoke.dp_reference_train(pcd, views, chip_smoke.dp_config(), 1, CPU)
+    single = chip_smoke.with_sh3(T.Trainer(pcd, views, chip_smoke.dp_config(), seed=0,
+                                           device=CPU))
+    single.train(iterations=6, log_every=6)
+    assert ref.num_points == single.state.num_points > 400  # the densify fired
+    for k, v in single.state.params.items():
+        torch.testing.assert_close(ref.params[k], v, rtol=1e-5, atol=1e-6, msg=k)
+
+
+def test_phase16_scaled_grad_error_is_one_at_the_tolerance():
+    want = torch.tensor([1.0, -0.5, 0.0])
+    at = want + torch.tensor([chip_smoke.K4_ATOL + chip_smoke.K4_RTOL, 0.0, 0.0])
+    assert chip_smoke.scaled_grad_error(want, want) == 0.0
+    assert chip_smoke.scaled_grad_error(at, want) == pytest.approx(1.0, rel=1e-4)

@@ -173,6 +173,33 @@ def _visual_hull_field(tmp, **kw):
     return fields
 
 
+def _in_group_of_one(fn):
+    """fn() in the process group of one that make_mesh joins without
+    torchrun, left before returning so that no later test finds it."""
+    import torch.distributed as dist
+
+    try:
+        return fn()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_tensors(tmp, **kw):
+    from gaustudio_torch.parallel import make_mesh
+    from gaustudio_torch.parallel.mesh import Collectives
+
+    return _in_group_of_one(lambda: [torch.zeros(1, device=Collectives(make_mesh(**kw)).device)])
+
+
+def _dp_trainer_tensors(tmp, **kw):
+    from gaustudio_torch.parallel.train_dp import DPTrainer
+
+    return _in_group_of_one(lambda: _state_tensors(DPTrainer(
+        VanillaPointCloud.from_jax_params(_params(), device="cpu"), _cpu_views(),
+        **kw).state.shard))
+
+
 # entry point -> fn(tmp_path, **device kwargs) -> the tensors it made
 ENTRY_POINTS = {
     "renderers.make vanilla_renderer": lambda tmp, **kw: [
@@ -227,6 +254,8 @@ ENTRY_POINTS = {
     "TsdfInitializer": _tsdf_initializer_volume,
     "DepthInitializer": _depth_initializer_points,
     "VisualHullInitializer": _visual_hull_field,
+    "make_mesh": _mesh_tensors,
+    "DPTrainer": _dp_trainer_tensors,
 }
 
 

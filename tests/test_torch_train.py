@@ -263,14 +263,48 @@ def test_gs_train_cli_writes_the_inria_layout(tmp_path):
     assert [json.loads(x)["step"] for x in open(out / "metrics.jsonl")] == [20]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--dataset", "nerf", "--config", "2dgs", "--gs_shards", "2"], "slice 8"),
-    (["--dataset", "nerf", "--gs_shards", "2"], "slice 8"),
+@pytest.mark.parametrize("argv,trainer", [
+    (["--dataset", "nerf", "--config", "2dgs", "--gs_shards", "2"], "SurfelTrainer"),
+    (["--dataset", "nerf", "--gs_shards", "2"], "Trainer"),
 ], ids=["2dgs", "gs_shards"])
-def test_gs_train_cli_refuses_deferred_inputs(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_train_cli.main(["-s", str(tmp_path), "-o", str(tmp_path / "out"), "--device", "cpu"]
-                         + argv)
+def test_gs_train_cli_refuses_deferred_inputs(tmp_path, monkeypatch, argv, trainer):
+    """``--gs_shards`` in one process, as the JAX CLI takes it: 2DGS trains
+    with the SurfelTrainer, and a vanilla config with the single-device
+    Trainer (the shards apply only to a multi-rank launch)."""
+    routed = []
+    monkeypatch.setattr(t_train.Trainer, "train",
+                        lambda self, **kw: routed.append(type(self).__name__) or [])
+    src = _write_nerf_scene(tmp_path / "scene")
+    t_train_cli.main(["-s", str(src), "-o", str(tmp_path / "out"), "--device", "cpu",
+                      "--init_points", "50", "--iterations", "1"] + argv)
+    assert routed == [trainer]
+    assert (tmp_path / "out" / "point_cloud" / "iteration_1" / "point_cloud.ply").exists()
+
+
+def test_gs_train_cli_under_torchrun_trains_sharded(tmp_path):
+    """gs-train under ``torch.distributed.run --nproc_per_node 2`` on the CPU
+    trains with the DPTrainer on a dp=1 x gs=2 mesh (gloo); rank 0 writes
+    the model and cameras.json."""
+    import subprocess
+    import sys
+
+    src = _write_nerf_scene(tmp_path / "scene")
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "gaustudio_torch.scripts.train", "-s", str(src), "-o", str(out), "--dataset",
+         "nerf", "--iterations", "4", "--save_every", "4", "--init_points", "200",
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "Multi-device training: dp=1 x gs=2" in proc.stdout
+    assert "torch.distributed: backend gloo" in proc.stdout
+    pcd = j_models.make({"name": "vanilla_pcd"})
+    pcd.load(str(out / "point_cloud" / "iteration_4" / "point_cloud.ply"))
+    assert pcd.num_points == 200 and np.isfinite(np.asarray(pcd._xyz)).all()
+    with open(out / "cameras.json") as f:
+        assert len(json.load(f)) == 4
 
 
 def test_gs_train_cli_refuses_a_surfel_config(tmp_path, monkeypatch):
