@@ -39,7 +39,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    counts of that run, and the PSNR of the exported model against that of
    the initial point cloud (at least 3 dB better);
 6b. training with the kernels against training with the plain versions:
-   30 steps from the fixture's model, one camera sequence, final PSNR
+   10 steps from the fixture's model, one camera sequence, final PSNR
    within 0.1 dB;
 7. training at full width: 30 steps and one densify at 1920x1080 / 300k /
    SH 3 and at 512x512 / 100k, with ms per iteration, the device's busy
@@ -52,7 +52,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    fixture's sparse points as in phase 6, with the launch counts, a
    2-column scale export and the exported model's PSNR against that of the
    initial point cloud (at least 2 dB better);
-9b. 2DGS training with the kernels against the plain versions: 12 steps,
+9b. 2DGS training with the kernels against the plain versions: 6 steps,
    one camera sequence, final PSNR within 0.1 dB;
 10. 2DGS training at 512x512 / 60k surfels: 30 steps and one densify, with
    ms per iteration, the device's busy share of a step and a breakdown;
@@ -78,7 +78,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    busy share; mip's filtered opacities at most the raw ones, gsplat's image
    not vanilla's; then 30 Scaffold steps at 1080p against the vanilla
    scene's renders (K1-K4, ms/it, stages, busy share) and one
-   adjust_anchors, timed; 12 Scaffold steps on the fixture with the kernels
+   adjust_anchors, timed; 6 Scaffold steps on the fixture with the kernels
    against the plain versions (final PSNR within 0.1 dB); and gs-train
    --config scaffold on the fixture, its exported model's PSNR against its
    first logged PSNR at or above the gate taken from the JAX trainer;
@@ -150,14 +150,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    phase 11's (F1 >= 0.999 at half a voxel) and the CLI's file names; (e)
    gs-train --gs_shards 2 under torch.distributed.run with two ranks on
    mini_scene for 300 iterations (dp=1 x gs=2; rank 0's files; the exported
-   model's PSNR above the initial cloud's). A rank that fails fails the run.
+   model's PSNR above the initial cloud's). A rank that fails fails the run;
+17. the capture and at-scale training tools (gaustudio_torch/tools) at their
+   defaults, each through K1-K4: (a) make_fixture (10 views at 128 px,
+   8000 Gaussians refit for 250 iterations, mesh extraction) against
+   tests/fixtures/mini_scene: cameras.json within 1e-6, gt_mesh.ply equal,
+   the images equal as uint8 but at triangle edges (at most 0.5% of the
+   pixels; one level at most off the edges), the refit's mean PSNR within
+   0.5 dB of GOLDEN.json, its mesh within tests/test_golden_e2e.py's F1
+   and chamfer bounds; (b) train_at_scale at 512 px, 64 views (every 8th
+   held out), 2000 initial points and 7000 iterations (densify 600-5500,
+   an opacity reset at 3000, SH to degree 3): at least 15,000
+   points, held-out PSNR >= 26 dB, no non-finite parameter, with ms/it,
+   wall and the busy share of a step of the trained state; (c)
+   train_scaffold at 256 px, 24 views, 6000 anchors, 2000 iterations: the
+   loss falls, held-out PSNR rises; (d) demo_e2e at 256 px, 1500
+   iterations, 5000 Gaussians: PSNR rises, the mesh has > 100 faces. (b)
+   runs in a process of its own (--tools-at-scale) beside (a), (c), (d).
 
-Each path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14, 15 and 16) is driven with
-every launch count set to 0 just before it and read just after; a kernel of
-the path that was not launched fails the run. The report's ``launches`` sums
-the counts of the render, training, mesh, variant, point-extraction,
-initialization, flythrough and multi-device paths (phases 5, 6, 8, 9 and
-11-16; phase 16's of each rank but (e)'s, whose processes are the CLI's).
+Each path (phases 4, 5, 6, 8, 9, 11, 12, 13, 14, 15, 16 and 17) is driven
+with every launch count set to 0 just before it and read just after; a
+kernel of the path that was not launched fails the run. The report's
+``launches`` sums the counts of the render, training, mesh, variant,
+point-extraction, initialization, flythrough, multi-device and tools paths
+(phases 5, 6, 8, 9 and 11-17; phase 16's of each rank but (e)'s, whose
+processes are the CLI's). The elapsed time is printed after each phase
+and for the whole script.
 The last two lines are
 {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -209,6 +227,10 @@ SURFEL_N = 200_000  # bench_all.py bench_surfel_render
 SURFEL_TRAIN_W = SURFEL_TRAIN_H = 512  # bench_all.py bench_surfel_train_step
 SURFEL_TRAIN_N = 60_000
 SURFEL_FIXTURE_GAIN_DB = 2.0  # tests/test_train_surfel.py:86
+# steps of the kernels-against-plain training checks (phases 6b and 9b); the
+# plain halves take 2-10 s a step on the host
+TRAIN_CHECK_STEPS = 10
+SURFEL_CHECK_STEPS = 6
 SURFEL_CONFIG = {"name": "vanilla_pcd", "attributes": {
     "xyz": 3, "opacity": 1, "f_dc": 3, "f_rest": 45, "scale": 2, "rot": 4}}
 
@@ -1837,7 +1859,7 @@ SCAFFOLD_SCENE_N, SCAFFOLD_SEED = 30_000, 0
 # of 0.016 is make_scene's median scale 0.008
 SCAFFOLD_LOG_SCALES = (math.log(0.05), math.log(0.016))
 SCAFFOLD_STEPS = 30
-SCAFFOLD_CHECK_STEPS = 12  # kernels against plain, on the fixture (phase 6b's check)
+SCAFFOLD_CHECK_STEPS = 6  # kernels against plain, on the fixture (phase 6b's check)
 SCAFFOLD_FIXTURE_ITERS = 500
 # The JAX ScaffoldTrainer on mini_scene from its sparse points, 500 iterations,
 # on the CPU (``JAX_PLATFORMS=cpu python -m tests.test_torch_scaffold 500``):
@@ -4072,6 +4094,237 @@ def ab_kernels(parent: str, card: str) -> None:
             f"{after / before:.4f} (means of 2 x 3 windows of 20 calls) | {card}")
 
 
+# --- phase 17: the capture and at-scale training tools ----------------------
+#
+# gaustudio_torch/tools at their defaults, each through its run(): (a)
+# make_fixture (10 views at 128 px, 8000 Gaussians refit for 250
+# iterations) against the committed fixture; (b) train_at_scale (512 px, 64
+# views, every 8th held out, 2000 initial points, 7000 iterations) against
+# the JAX run's bar; (c) train_scaffold (256 px, 24 views, 6000 anchors,
+# 2000 iterations); (d) demo_e2e (256 px, 1500 iterations, 5000 Gaussians).
+
+TOOLS_PSNR_TOL = 0.5  # dB of GOLDEN.json's psnr_mean, the refit on another trainer
+TOOLS_EDGE_SHARE = 0.005  # fixture pixels that may differ, all at triangle edges
+TOOLS_NEVER = ("render_surfel_tiles", "render_surfel_tiles_backward")
+TOOLS_BUSY_STEPS = 5  # timed steps of the trained state for the busy share
+TOOLS_AT_SCALE_TIMEOUT_S = 900  # (b): 7000 steps at ~36 ms and its capture
+
+
+def tools_counts(tag: str, counts: dict) -> None:
+    say("tools", f"{tag}: launches {json.dumps(counts)}")
+    check(all(counts[k] > 0 for k in TRAIN_PATH), f"{tag}: a kernel was not launched: {counts}")
+    check(all(counts[k] == 0 for k in TOOLS_NEVER), f"{tag}: a surfel kernel ran: {counts}")
+
+
+def edge_pixels(tri_id: np.ndarray) -> np.ndarray:
+    """Pixels whose 3x3 neighbourhood holds another triangle id (or the
+    background): where two rasterizers may break ties differently."""
+    H, W = tri_id.shape
+    pad = np.pad(tri_id, 1, mode="edge")
+    edge = np.zeros((H, W), bool)
+    for dy in range(3):
+        for dx in range(3):
+            edge |= pad[dy:dy + H, dx:dx + W] != tri_id
+    return edge
+
+
+def fixture_image_diff(out_dir: str, device) -> dict:
+    """The port's fixture images against the committed PNGs as uint8:
+    pixels that differ, those of them at triangle edges of the port's
+    fragments, and the largest channel difference off the edges."""
+    from gaustudio_torch.ops import mesh_raster as MR
+    from gaustudio_torch.tools import make_fixture
+    from gaustudio_torch.utils.image import load_rgb8
+
+    verts, faces = make_fixture.scene_mesh()
+    v = torch.from_numpy(verts).to(device)
+    f = torch.from_numpy(faces.astype(np.int64)).to(device)
+    with open(os.path.join(FIXTURE, "GOLDEN.json")) as fh:
+        golden = json.load(fh)
+    cams = make_fixture.fixture_cameras(golden["views"], golden["size"], device)
+    diff = {"pixels": 0, "differ": 0, "at_edges": 0, "off_edge_max": 0}
+    for cam in cams:
+        got = load_rgb8(os.path.join(out_dir, "images", cam.image_name)).astype(np.int32)
+        want = load_rgb8(os.path.join(FIXTURE, "images", cam.image_name)).astype(np.int32)
+        frag = MR.rasterize_mesh(v, f, cam.world_view_transform, cam.full_proj_transform,
+                                 cam.image_width, cam.image_height)
+        edge = edge_pixels(frag.tri_id.cpu().numpy())
+        delta = np.abs(got - want).max(axis=-1)
+        diff["pixels"] += delta.size
+        diff["differ"] += int((delta > 0).sum())
+        diff["at_edges"] += int(((delta > 0) & edge).sum())
+        diff["off_edge_max"] = max(diff["off_edge_max"], int(delta[~edge].max(initial=0)))
+    return diff
+
+
+def tools_fixture(out_dir: str, device, card: str) -> dict:
+    """(a) make_fixture at its defaults against tests/fixtures/mini_scene:
+    cameras.json within 1e-6, gt_mesh.ply equal, the images equal as uint8
+    but at triangle edges (at most TOOLS_EDGE_SHARE of the pixels, and off
+    the edges at most one level), the refit's mean PSNR within
+    TOOLS_PSNR_TOL of GOLDEN.json, its mesh within the bounds of
+    tests/test_golden_e2e.py:100-101."""
+    from gaustudio_torch.tools import make_fixture
+    from gaustudio_torch.utils.ply import read_ply
+
+    out = os.path.join(out_dir, "tools_fixture")
+    with open(os.path.join(FIXTURE, "GOLDEN.json")) as fh:
+        want = json.load(fh)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = make_fixture.run(make_fixture.parse_args(["--out", out, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tools_counts("make_fixture", counts)
+    with open(os.path.join(out, "cameras.json")) as fh:
+        cams = json.load(fh)
+    with open(os.path.join(FIXTURE, "cameras.json")) as fh:
+        ref = json.load(fh)
+    check(len(cams) == len(ref), "make_fixture wrote another number of cameras")
+    cam_err = 0.0
+    for c, r in zip(cams, ref):
+        check(c["img_name"] == r["img_name"] and c["width"] == r["width"], f"camera {c['id']}")
+        for k in ("position", "rotation", "fx", "fy", "cx", "cy"):
+            cam_err = max(cam_err, float(np.abs(np.subtract(c[k], r[k])).max()))
+    mesh, ref_mesh = (read_ply(os.path.join(d, "gt_mesh.ply")) for d in (out, FIXTURE))
+    mesh_equal = all(np.array_equal(mesh[e][k], ref_mesh[e][k])
+                     for e in ref_mesh for k in ref_mesh[e]) and mesh.keys() == ref_mesh.keys()
+    diff = fixture_image_diff(out, device)
+    floor, ceiling = want["mesh_f1"] - 0.03, want["mesh_chamfer"] * 1.25 + 1e-4
+    say("tools", f"(a) make_fixture {wall:.1f} s: cameras.json max |err| {cam_err:.3g}; "
+        f"gt_mesh.ply equal {mesh_equal}; images: {diff['differ']} of {diff['pixels']} pixels "
+        f"differ ({diff['differ'] / diff['pixels']:.5f}), {diff['at_edges']} at edges, off "
+        f"the edges at most {diff['off_edge_max']} level(s); refit PSNR {got['psnr_mean']} "
+        f"(GOLDEN {want['psnr_mean']} +- {TOOLS_PSNR_TOL}); mesh F1 {got['mesh_f1']} (floor "
+        f"{floor:.4f}), chamfer {got['mesh_chamfer']} (ceiling {ceiling:.5f}) | {card}")
+    check(cam_err <= 1e-6, f"cameras.json off by {cam_err}")
+    check(mesh_equal, "gt_mesh.ply differs from the committed one")
+    check(diff["differ"] <= TOOLS_EDGE_SHARE * diff["pixels"], f"fixture images: {diff}")
+    check(diff["off_edge_max"] <= 1, f"fixture images differ off the edges: {diff}")
+    check(abs(got["psnr_mean"] - want["psnr_mean"]) <= TOOLS_PSNR_TOL, "refit PSNR off GOLDEN")
+    check(got["mesh_f1"] >= floor and got["mesh_chamfer"] <= ceiling, "refit mesh off GOLDEN")
+    return counts
+
+
+def trained_busy_share(tag: str, trainer, card: str) -> None:
+    """The device's busy share of a step of the trained state (busy_share
+    over the median host wall of TOOLS_BUSY_STEPS unprofiled steps, each
+    fenced by synchronize())."""
+    settings = trainer.settings()
+    batch = trainer.batch(trainer.cameras[0])
+    step = lambda: trainer.step(batch, settings)  # noqa: E731
+    step()
+    walls = []
+    for _ in range(TOOLS_BUSY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    busy_share(f"{tag}: a step of the trained state ({trainer.state.num_points} points)", step,
+               statistics.median(walls), card)
+
+
+def tools_at_scale(out_dir: str, device, card: str) -> dict:
+    """(b) train_at_scale at the JAX tool's defaults, held to its bar."""
+    from gaustudio_torch.tools import train_at_scale as tas
+
+    args = tas.parse_args(["--out", os.path.join(out_dir, "tools_train_at_scale"),
+                           "--device", "cuda"])
+    reset_counts()
+    t0 = time.perf_counter()
+    summary, trainer = tas.train_and_evaluate(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tools_counts("train_at_scale", counts)
+    with open(os.path.join(args.out, "metrics.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    densify = [m for m in logged if "num_points_after" in m]
+    say("tools", f"(b) train_at_scale {summary['size']} px, {summary['views_train']} + "
+        f"{summary['views_heldout']} views, {summary['iters']} iterations: held-out PSNR "
+        f"{summary['psnr_heldout_before']} -> {summary['psnr_heldout_after']} dB, points "
+        f"{summary['init_points']} -> {summary['final_points']} ({len(densify)} densify calls, "
+        f"the largest {max((m['num_points_after'] for m in densify), default=0)}), "
+        f"{summary['train_ms_per_iter']} ms/it, training {summary['train_wall_s']} s, "
+        f"the tool {wall:.1f} s; non-finite rows {summary['nonfinite_rows']} | {card}")
+    check(summary["platform"] == "cuda", "train_at_scale did not train on the card")
+    tas.check_bars(summary, args)
+    trained_busy_share("(b) train_at_scale", trainer, card)
+    return counts
+
+
+def tools_scaffold(out_dir: str, card: str) -> dict:
+    """(c) train_scaffold at its defaults: the loss falls, held-out PSNR rises."""
+    from gaustudio_torch.tools import train_scaffold
+
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = train_scaffold.run(train_scaffold.parse_args(
+        ["--out", os.path.join(out_dir, "tools_train_scaffold"), "--device", "cuda"]))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tools_counts("train_scaffold", counts)
+    say("tools", f"(c) train_scaffold {summary['size']} px, {summary['iters']} iterations: "
+        f"loss {summary['loss_first']:.4f} -> {summary['loss_last']:.4f}, held-out PSNR "
+        f"{summary['psnr_heldout_before']} -> {summary['psnr_heldout_after']} dB, anchors "
+        f"{summary['init_anchors']} -> {summary['final_anchors']}, "
+        f"{summary['train_ms_per_iter']} ms/it, the tool {wall:.1f} s | {card}")
+    train_scaffold.check_bars(summary)
+    return counts
+
+
+def tools_demo(out_dir: str, card: str) -> dict:
+    """(d) demo_e2e at its defaults: PSNR rises, the mesh has > 100 faces."""
+    from gaustudio_torch.tools import demo_e2e
+
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = demo_e2e.run(demo_e2e.parse_args(
+        ["--out", os.path.join(out_dir, "tools_demo_e2e"), "--device", "cuda"]))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tools_counts("demo_e2e", counts)
+    say("tools", f"(d) demo_e2e {json.dumps(summary)}; the tool {wall:.1f} s | {card}")
+    check(summary["psnr_after"] > summary["psnr_before"], "demo_e2e: PSNR did not rise")
+    check(summary["mesh_faces"] > 100, f"demo_e2e: a mesh of {summary['mesh_faces']} faces")
+    return counts
+
+
+def tools(out_dir: str, device, card: str) -> list:
+    """Phase 17: the launch counts of (a)-(d). (b), the longest, runs in a
+    process of its own (``--tools-at-scale``) while this one runs (a), (c)
+    and (d): every step is host-bound, and the card's machine has 8 cores.
+    Its counts come back as the last line of its output."""
+    t0 = time.perf_counter()
+    log_path = os.path.join(out_dir, "tools_at_scale.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tools-at-scale",
+                                 "--out", out_dir], stdout=log, stderr=subprocess.STDOUT)
+    try:
+        counts = [tools_fixture(out_dir, device, card), tools_scaffold(out_dir, card),
+                  tools_demo(out_dir, card)]
+        say("tools", f"(a), (c), (d) {time.perf_counter() - t0:.1f} s; waiting for (b)")
+        rc = proc.wait(timeout=TOOLS_AT_SCALE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as log:
+        lines = log.read().splitlines()
+    for line in lines[:-1]:
+        if line.startswith("["):
+            print(line, flush=True)
+    check(rc == 0, "phase 17 (b) failed:\n" + "\n".join(lines[-40:]))
+    counts.append(json.loads(lines[-1]))
+    say("tools", f"phase 17 {time.perf_counter() - t0:.1f} s | {card}")
+    return counts
+
+
+def lap(phase: str, started: float) -> None:
+    say("time", f"phases 1-{phase}: {time.perf_counter() - started:.1f} s since the start")
+
+
 def kernels_report(path_counts: list, errs: dict, times: dict, bounds: dict) -> dict:
     """The {"kernels": [...]} line: each kernel's launches summed over the
     main paths' counts, with its error, times and bound."""
@@ -4097,9 +4350,13 @@ def main(argv=None) -> int:
                              "1080p shapes and print one JSON line")
     parser.add_argument("--tree", default=REPO,
                         help="with --time-backward: the checkout whose gaustudio_torch to use")
+    parser.add_argument("--tools-at-scale", action="store_true",
+                        help="only run phase 17 (b) into --out and print its launch counts "
+                             "as the last line")
     args = parser.parse_args(argv)
 
     # phase 1: the card
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
@@ -4112,6 +4369,9 @@ def main(argv=None) -> int:
     card = card_line()
     if args.time_backward:
         print(json.dumps(time_for_ab(device, card)), flush=True)
+        return 0
+    if args.tools_at_scale:
+        print(json.dumps(tools_at_scale(args.out, device, card)), flush=True)
         return 0
     print(card, flush=True)
     if args.ab:
@@ -4190,49 +4450,61 @@ def main(argv=None) -> int:
     del surfel_pcd, surfel_pre, k5_args, k6_args
     for k, err in compare_hard_cases(device).items():
         errs[k] = max(errs[k], err)
+    lap("3", started)
 
     # phase 4: the render path on the fixture, against GOLDEN.json
     main_path_fixture(args.out, device)
+    lap("4", started)
 
     # phase 5: the render path at full width
     path_counts = [main_path_full(args.out, ply, cams_path, device, card)]
+    lap("5", started)
 
     # phase 6: the training path on the fixture
     path_counts.append(train_fixture(args.out, device, card))
+    lap("6", started)
 
     # phase 6b: the kernels against the plain versions inside training (the
-    # plain half is launch-bound, 2-4 s a step on the host: 30 steps keep the
-    # script well inside its time)
-    train_kernels_vs_plain(device, card, steps=30)
+    # plain half is launch-bound, 2-4 s a step on the host: 10 steps keep the
+    # script, phase 17 included, inside its time)
+    train_kernels_vs_plain(device, card, steps=TRAIN_CHECK_STEPS)
+    lap("6b", started)
 
     # phase 7: training at the two training shapes
     train_at_scale(args.out, ply, cams_path, device, card, "1080p/300k")
     small_ply, small_cams = write_full_scene(args.out, n=SMALL_N, W=SMALL_W, H=SMALL_H,
                                              name="small")
     train_at_scale(args.out, small_ply, small_cams, device, card, "512/100k")
+    lap("7", started)
 
     # phase 8: the 2DGS render path at full width
     path_counts.append(main_path_surfel(args.out, surfel_ply, surfel_cams, device, card))
+    lap("8", started)
 
     # phase 9: the 2DGS training path on the fixture
     path_counts.append(train_fixture(args.out, device, card, surfel=True))
+    lap("9", started)
 
     # phase 9b: the kernels against the plain versions inside 2DGS training
-    train_kernels_vs_plain(device, card, steps=12, surfel=True)
+    train_kernels_vs_plain(device, card, steps=SURFEL_CHECK_STEPS, surfel=True)
+    lap("9b", started)
 
     # phase 10: 2DGS training at 512x512 / 60k surfels
     st_ply, st_cams = write_surfel_train_scene(args.out)
     train_at_scale(args.out, st_ply, st_cams, device, card, "2DGS 512/60k", surfel=True)
+    lap("10", started)
 
     # phase 11: mesh extraction: gs-extract-mesh on the fixture, bench_all.py's
     # workload (and as surfels), and at full width
     path_counts.append(mesh_fixture(args.out))
     path_counts.extend(mesh_bench(args.out, device, card))
     path_counts.append(mesh_full(args.out, device, card))
+    lap("11", started)
 
     # phase 12: the model and renderer variants (mip, gsplat, pcd, scaffold)
     # and Scaffold-GS training
     path_counts.extend(variants(args.out, ply, cams_path, device, card))
+    lap("12", started)
 
     # phase 13: point extraction and the mesh tools (gs-extract-pcd on the
     # fixture and at full width; gs-render-mesh, gs-texture-mesh and
@@ -4240,20 +4512,29 @@ def main(argv=None) -> int:
     path_counts.extend(pcd_fixture(args.out, device, card))
     path_counts.append(pcd_full(args.out, device, card))
     path_counts.extend(mesh_tools(args.out, device, card))
+    lap("13", started)
 
     # phase 14: gs-init and gs-process-data on a capture rendered of phase 11's
     # sphere (K1-K3), then gs-train from gs-init's cloud (K1-K4)
     path_counts.append(init_full(args.out, device, card))
+    lap("14", started)
 
     # phase 15: gs-render --flythrough of the 300k scene at 1080p (K1-K3), the
     # native COLMAP readers, colmap_db, trace / annotate and the debug snapshot
     path_counts.append(flythrough_full(args.out, ply, device, card))
+    lap("15", started)
 
     # phase 16: multi-device on the one card: the DPTrainer on one rank over
     # NCCL; two ranks sharing the card over gloo for the sharded step, the
     # camera-parallel render and gs-extract-mesh; gs-train under torchrun
     path_counts.extend(multi_device(args.out, ply, cams_path, surfel_ply, device, card))
+    lap("16", started)
 
+    # phase 17: the capture and at-scale training tools (make_fixture,
+    # train_at_scale, train_scaffold, demo_e2e) at their defaults (K1-K4)
+    path_counts.extend(tools(args.out, device, card))
+
+    say("time", f"chip_smoke {time.perf_counter() - started:.1f} s | {card}")
     report = kernels_report(path_counts, errs, times, bounds)
     check(all(k["launches"] > 0 for k in report["kernels"]), f"unlaunched kernel: {report}")
     print(json.dumps(report), flush=True)

@@ -27,6 +27,15 @@ from gaustudio_torch.ops.gaussian import transform_dirs
 from gaustudio_torch.utils.misc import resolve_device
 
 
+def getWorld2View(R, t):
+    """W2V [4, 4] (float32 numpy) of a camera-to-world rotation and a translation."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = np.asarray(R).transpose()
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+    return np.float32(Rt)
+
+
 def getWorld2View2(R, t, translate=np.array([0.0, 0.0, 0.0]), scale=1.0):
     """W2V with recentred / rescaled camera centre (float32 numpy)."""
     Rt = np.zeros((4, 4))
@@ -152,6 +161,13 @@ class Camera:
         self.image_path = image_path
         self.image_name = os.path.basename(str(image_path)).split(".")[0]
         self.image_height, self.image_width = img.shape[:2]
+
+    def __repr__(self):
+        return (
+            f"Camera(FoVx={self.FoVx:.2f}, FoVy={self.FoVy:.2f}, "
+            f"image_width={self.image_width}, image_height={self.image_height}, "
+            f"znear={self.znear}, zfar={self.zfar})"
+        )
 
     @property
     def fx(self) -> torch.Tensor:

@@ -56,6 +56,40 @@ class BasePointCloud:
             self.num_points = int(value.shape[0])
         self.config["attributes"] = {k: getattr(self, "_" + k).shape[1] for k in given}
 
+    @property
+    def get_center_and_size(self):
+        """Centre and size of the 5 / 95-percentile box of the points (numpy)."""
+        xyz = self._xyz.detach().cpu().numpy()
+        lower = np.percentile(xyz, 5, axis=0)
+        upper = np.percentile(xyz, 95, axis=0)
+        return (lower + upper) / 2, upper - lower
+
+    @property
+    def get_center(self):
+        """Centre of the points' bounding box (numpy)."""
+        xyz = self._xyz.detach().cpu().numpy()
+        return (xyz.min(0) + xyz.max(0)) / 2
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The raw attributes by name."""
+        return {elem: getattr(self, "_" + elem) for elem in self.config["attributes"]}
+
+    def __add__(self, other):
+        """A model of both models' points: each attribute concatenated, zeros
+        for the rows of an attribute ``other`` lacks."""
+        if not isinstance(other, BasePointCloud):
+            raise TypeError(f"Unsupported operand type for +: '{type(self).__name__}' and "
+                            f"'{type(other).__name__}'")
+        result = self.__class__(self.config, self.device)
+        for attr in self.config["attributes"]:
+            mine = getattr(self, f"_{attr}")
+            theirs = getattr(other, f"_{attr}", None)
+            if theirs is None or not len(theirs):
+                theirs = mine.new_zeros((other.num_points,) + tuple(mine.shape[1:]))
+            setattr(result, f"_{attr}", torch.cat([mine, self._as_tensor(theirs)], 0))
+        result.num_points = self.num_points + other.num_points
+        return result
+
     def load(self, ply_path: str):
         """Inria-format checkpoint loader: xyz, opacity, rgb (uint8 red,
         green, blue / 255) and prefix-numbered fields (f_dc_0.., scale_0..)."""

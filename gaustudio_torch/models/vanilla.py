@@ -128,6 +128,34 @@ class VanillaPointCloud(BasePointCloud):
         f_rest = self._f_rest.reshape(n, 3, -1).transpose(1, 2)
         return torch.cat([f_dc, f_rest], dim=1)
 
+    @property
+    def get_opacity(self):
+        return self.get_attribute("opacity")
+
+    @property
+    def get_scaling(self):
+        return self.get_attribute("scale")
+
+    @property
+    def get_rotation(self):
+        return self.get_attribute("rot")
+
+    @property
+    def get_xyz(self):
+        return self.get_attribute("xyz")
+
+    @property
+    def get_num_points(self):
+        return self.num_points
+
+    @property
+    def get_features_dc(self):
+        return self.get_attribute("f_dc").reshape(self.num_points, -1, 3)
+
+    @property
+    def get_features_rest(self):
+        return self.get_attribute("f_rest").reshape(self.num_points, -1, 3)
+
     def export(self, path):
         """Write the Inria-format checkpoint PLY."""
         n = self.num_points

@@ -86,10 +86,26 @@ class GeneralOptimizer:
         self.eps = float(self.config.get("args", {}).get("eps", 1e-15))
         self.lrs = {k: float(v.get("lr", 0.0))
                     for k, v in self.config.get("params", {}).items()}
+        self.state = None
+        self._params = None
 
     def init(self, params) -> AdamState:
-        return adam_init(params)
+        self.state = adam_init(params)
+        return self.state
 
     def update(self, grads, state, params, lr_overrides=None):
         lrs = {**self.lrs, **(lr_overrides or {})}
         return adam_update(grads, state, params, lrs, eps=self.eps)
+
+    # the reference's torch-style API: the optimizer holds the parameters
+    def setup(self, params):
+        self._params = dict(params)
+        self.init(self._params)
+
+    def step(self, grads):
+        """One ``update`` of the held parameters; returns them."""
+        self._params, self.state = self.update(grads, self.state, self._params)
+        return self._params
+
+    def zero_grad(self):
+        """Nothing to clear: gradients are arguments of ``step``."""

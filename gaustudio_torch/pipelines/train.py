@@ -134,12 +134,19 @@ def state_from_jax(jax_state, device=None, mesh=None):
         active_sh_degree=int(np.asarray(jax_state.active_sh_degree)))
 
 
+def finite_rows(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """[N] bool: the rows whose every parameter is finite."""
+    finite = None
+    for v in params.values():
+        ok = torch.isfinite(v).all(dim=-1)
+        finite = ok if finite is None else finite & ok
+    return finite
+
+
 def state_to_model(state: TrainState, pcd):
     """Write the trained values into a VanillaPointCloud, dropping rows with
     a non-finite value (rows that diverged after the last densify)."""
-    finite = torch.ones(state.num_points, dtype=torch.bool, device=state.params["xyz"].device)
-    for v in state.params.values():
-        finite &= torch.isfinite(v).all(dim=-1)
+    finite = finite_rows(state.params)
     n_bad = int((~finite).sum())
     if n_bad:
         print(f"state_to_model: dropping {n_bad} non-finite rows")
@@ -247,10 +254,7 @@ def densify_and_prune(state: TrainState, generator: torch.Generator, extent: flo
     prune_opacity = opacity_act < cfg.min_opacity
     big = (state.max_radii2d > cfg.max_screen_size) | (max_scale > 0.1 * extent)
     prune_big = big & prune_big_points
-    finite = torch.ones_like(over_thr)
-    for v in p.values():
-        finite &= torch.isfinite(v).all(dim=-1)
-    survive = ~(prune_opacity | prune_big | ~finite) & ~split_mask
+    survive = ~(prune_opacity | prune_big | ~finite_rows(p)) & ~split_mask
 
     clone_src = torch.nonzero(clone_mask).squeeze(1)
     split_src = torch.nonzero(split_mask).squeeze(1).repeat(2)  # first children, then second
@@ -279,6 +283,7 @@ def densify_and_prune(state: TrainState, generator: torch.Generator, extent: flo
         "n_prune_opacity": int(prune_opacity.sum()),
         "n_prune_big": int(prune_big.sum()),
         "grad_med": float(torch.nanquantile(grads, 0.5)) if grads.numel() else float("nan"),
+        "num_points_after": n_keep + n_new,
     }
     return _new_state(new_rows, opt, state.step, state.active_sh_degree), info
 

@@ -22,6 +22,12 @@ class Registry:
     def keys(self):
         return self._entries.keys()
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+    def __getitem__(self, name: str):
+        return self._entries[name]
+
     def make(self, config, **kwargs):
         """Instantiate a registered class from a name or a config mapping.
 

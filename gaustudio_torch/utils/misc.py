@@ -22,6 +22,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def get_rank() -> int:
+    """This process's rank: from the launcher's environment (RANK,
+    LOCAL_RANK, SLURM_PROCID, JSM_NAMESPACE_RANK), else the process group's
+    rank, else 0."""
+    for key in ("RANK", "LOCAL_RANK", "SLURM_PROCID", "JSM_NAMESPACE_RANK"):
+        rank = os.environ.get(key)
+        if rank is not None:
+            return int(rank)
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def searchForMaxIteration(folder: str) -> int:
     """Largest ``iteration_<n>`` under ``folder``."""
     saved_iters = [int(fname.split("_")[-1]) for fname in os.listdir(folder)]

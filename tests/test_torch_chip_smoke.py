@@ -454,3 +454,99 @@ def test_phase16_scaled_grad_error_is_one_at_the_tolerance():
     at = want + torch.tensor([chip_smoke.K4_ATOL + chip_smoke.K4_RTOL, 0.0, 0.0])
     assert chip_smoke.scaled_grad_error(want, want) == 0.0
     assert chip_smoke.scaled_grad_error(at, want) == pytest.approx(1.0, rel=1e-4)
+
+
+def test_kernels_line_counts_phase17s_launches():
+    source = inspect.getsource(chip_smoke.main)
+    assert source.index("path_counts.extend(multi_device(") < source.index(
+        "path_counts.extend(tools(") < source.index("kernels_report(path_counts")
+
+
+def test_phase17_drives_the_tools_own_entry_points_and_bars():
+    """Phase 17's captures, trainings and gates are the tools' own: each
+    step runs a tool's run() (train_at_scale's train_and_evaluate, which
+    run() wraps) and its bar."""
+    from gaustudio_torch.tools import train_at_scale
+
+    calls = {chip_smoke.tools_fixture: ("make_fixture.run(",),
+             chip_smoke.tools_at_scale: ("tas.train_and_evaluate(", "tas.check_bars("),
+             chip_smoke.tools_scaffold: ("train_scaffold.run(", "train_scaffold.check_bars("),
+             chip_smoke.tools_demo: ("demo_e2e.run(",)}
+    for fn, needles in calls.items():
+        source = inspect.getsource(fn)
+        assert all(n in source for n in needles), fn.__name__
+    assert "train_and_evaluate(args)[0]" in inspect.getsource(train_at_scale.run)
+
+
+def test_phase17_edge_pixels_mark_both_sides_of_an_edge():
+    ids = np.full((5, 6), -1)
+    ids[1:4, 1:3] = 7
+    edge = chip_smoke.edge_pixels(ids)
+    assert edge[1:4, 1:3].all() and edge[0, 0] and not edge[4, 5] and not edge[0, 5]
+    assert not chip_smoke.edge_pixels(np.zeros((4, 4), int)).any()
+
+
+def test_phase17_fixture_images_are_the_committed_ones_on_the_cpu(tmp_path):
+    """(a)'s image check on the CPU: make_fixture's capture through the
+    port's mesh rasterizer, written as the tool writes it, reproduces the
+    committed PNGs; a changed pixel inside a face counts off the edges."""
+    from gaustudio_torch.tools import make_fixture
+    from gaustudio_torch.utils.image import load_rgb8, save_rgb8
+
+    os.makedirs(tmp_path / "images")
+    verts, faces = make_fixture.scene_mesh()
+    cams = make_fixture.fixture_cameras(10, 128, CPU)
+    for cam, img in zip(cams, make_fixture.render_mesh_views(verts, faces, cams, CPU)):
+        save_rgb8(str(tmp_path / "images" / cam.image_name), (img * 255).astype(np.uint8))
+    diff = chip_smoke.fixture_image_diff(str(tmp_path), CPU)
+    assert diff == {"pixels": 10 * 128 * 128, "differ": 0, "at_edges": 0, "off_edge_max": 0}
+    from gaustudio_torch.ops import mesh_raster
+
+    frag = mesh_raster.rasterize_mesh(torch.from_numpy(verts), torch.from_numpy(faces.astype(
+        np.int64)), cams[0].world_view_transform, cams[0].full_proj_transform, 128, 128)
+    y, x = np.argwhere(~chip_smoke.edge_pixels(frag.tri_id.numpy()) & frag.mask.numpy())[0]
+    path = str(tmp_path / "images" / "00000.png")
+    img = load_rgb8(path).copy()
+    img[y, x] = img[y, x] // 2 + 1
+    save_rgb8(path, img)
+    diff = chip_smoke.fixture_image_diff(str(tmp_path), CPU)
+    assert diff["differ"] == 1 and diff["off_edge_max"] > 1
+
+
+def test_phase17_takes_b_from_its_own_process_and_stops_it(tmp_path, monkeypatch):
+    """(b) runs as ``chip_smoke.py --tools-at-scale`` beside (a), (c), (d):
+    its counts are its output's last line, its failure fails the phase, and
+    a failure of (a)-(d) stops it."""
+    import subprocess
+    import sys
+
+    popen = subprocess.Popen
+    started = []
+
+    def child(code):
+        def fake(cmd, **kw):
+            assert cmd[1:] == [os.path.abspath(chip_smoke.__file__), "--tools-at-scale",
+                               "--out", str(tmp_path)]
+            started.append(popen([sys.executable, "-c", code], **kw))
+            return started[-1]
+        return fake
+
+    step = {"render_tiles": 1}
+    for name in ("tools_fixture", "tools_scaffold", "tools_demo"):
+        monkeypatch.setattr(chip_smoke, name, lambda *a, **k: step)
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", child(
+        "import json; print('[tools] (b) line'); print(json.dumps({'render_tiles': 7}))"))
+    assert chip_smoke.tools(str(tmp_path), CPU, "CPU") == [step, step, step, {"render_tiles": 7}]
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", child("raise SystemExit(3)"))
+    with pytest.raises(RuntimeError, match=r"phase 17 \(b\) failed"):
+        chip_smoke.tools(str(tmp_path), CPU, "CPU")
+
+    def fails(*a, **k):
+        raise RuntimeError("(a) failed")
+
+    monkeypatch.setattr(chip_smoke, "tools_fixture", fails)
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", child("import time; time.sleep(60)"))
+    with pytest.raises(RuntimeError, match=r"\(a\) failed"):
+        chip_smoke.tools(str(tmp_path), CPU, "CPU")
+    assert started[-1].poll() is not None
