@@ -21,6 +21,7 @@ from gaustudio_torch.models.utils import (
 )
 from gaustudio_torch.ops.sh import RGB2SH
 from gaustudio_torch.utils import ply as plyio
+from gaustudio_torch.utils.observability import annotate
 
 _ELEMS = ("xyz", "opacity", "f_dc", "f_rest", "scale", "rot")
 
@@ -124,9 +125,10 @@ class VanillaPointCloud(BasePointCloud):
         package does.
         """
         n = self.num_points
-        f_dc = self._f_dc.reshape(n, 1, 3)
-        f_rest = self._f_rest.reshape(n, 3, -1).transpose(1, 2)
-        return torch.cat([f_dc, f_rest], dim=1)
+        with annotate("gs.features", self._f_dc):
+            f_dc = self._f_dc.reshape(n, 1, 3)
+            f_rest = self._f_rest.reshape(n, 3, -1).transpose(1, 2)
+            return torch.cat([f_dc, f_rest], dim=1)
 
     @property
     def get_opacity(self):

@@ -37,6 +37,7 @@ import torch
 
 from gaustudio_torch.ops.gaussian import TILE_X, Preprocessed
 from gaustudio_torch.utils import kernels
+from gaustudio_torch.utils.observability import annotate, count
 
 
 class Binned(NamedTuple):
@@ -149,7 +150,8 @@ def duplicate_with_keys(pre: Preprocessed, grid_x: int, cull: bool = True):
     kernels.check(lib.gs_count_entries(n, *ptrs, int(cull), scratch.data_ptr(),
                                        kernels.stream()), "gs_count_entries")
     duplicate_with_keys.launches += 1
-    num_rendered = int(scratch[num_warps + num_blocks])
+    with annotate("gs.bin.readback"):
+        num_rendered = int(scratch[num_warps + num_blocks])
     if num_rendered >= 2**31:  # the range and render kernels index entries with int
         raise ValueError(f"duplicate_with_keys: {num_rendered} entries exceed int32")
     keys = torch.empty(num_rendered, dtype=torch.int64, device=device)
@@ -207,10 +209,14 @@ def bin_gaussians(pre: Preprocessed, grid_x: int, grid_y: int, plain: bool = Fal
     """
     dup = duplicate_with_keys_plain if plain else duplicate_with_keys
     ranges_fn = identify_tile_ranges_plain if plain else identify_tile_ranges
-    keys, gids = dup(pre, grid_x, cull)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    return Binned(
-        point_list=gids[order],
-        ranges=ranges_fn(sorted_keys, grid_x * grid_y),
-        num_rendered=int(keys.shape[0]),
-    )
+    with annotate("gs.bin", pre.means2d):
+        keys, gids = dup(pre, grid_x, cull)
+        sorted_keys, order = torch.sort(keys, stable=True)
+        binned = Binned(
+            point_list=gids[order],
+            ranges=ranges_fn(sorted_keys, grid_x * grid_y),
+            num_rendered=int(keys.shape[0]),
+        )
+    count("gs.rect_tiles", pre.tiles_touched)
+    count("gs.entries", binned.num_rendered)
+    return binned

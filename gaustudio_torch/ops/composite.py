@@ -34,6 +34,7 @@ import torch
 
 from gaustudio_torch.ops.gaussian import TILE_PIXELS, TILE_X, TILE_Y
 from gaustudio_torch.utils import kernels
+from gaustudio_torch.utils.observability import annotate
 
 _ALPHA_MAX = 0.99
 _ALPHA_MIN = 1.0 / 255.0
@@ -346,10 +347,11 @@ class _Composite(torch.autograd.Function):
         _, _, W, H = ctx.grid
         zero = lambda d, shape: torch.zeros(shape, device=final_T.device) if d is None else d
         backward = render_tiles_backward_plain if ctx.plain else render_tiles_backward
-        grads = backward(
-            ranges, point_list, means2d, conic, opacity, colors, depths, bg, final_T,
-            n_contrib, zero(d_color, (3, H, W)), zero(d_depth, (H, W)),
-            zero(d_final_T, (H, W)), zero(d_median_depth, (H, W)), *ctx.grid)
+        with annotate("gs.composite_bwd", final_T):
+            grads = backward(
+                ranges, point_list, means2d, conic, opacity, colors, depths, bg, final_T,
+                n_contrib, zero(d_color, (3, H, W)), zero(d_depth, (H, W)),
+                zero(d_final_T, (H, W)), zero(d_median_depth, (H, W)), *ctx.grid)
         return (*grads, None, None, None, None, None)
 
 

@@ -39,6 +39,7 @@ from gaustudio_torch.ops.composite import (
     tiles_to_image,
 )
 from gaustudio_torch.utils import kernels
+from gaustudio_torch.utils.observability import annotate
 
 _ALPHA_MAX = 0.99
 _ALPHA_MIN = 1.0 / 255.0
@@ -337,10 +338,11 @@ class _CompositeSurfel(torch.autograd.Function):
         _, _, W, H = ctx.grid
         zero = lambda d, shape: torch.zeros(shape, device=final_T.device) if d is None else d  # noqa: E731
         backward = render_surfel_tiles_backward_plain if ctx.plain else render_surfel_tiles_backward
-        g = backward(ranges, point_list, M, Dk, mean2d, opacity, colors, normals, final_T,
-                     n_contrib, zero(d_color, (3, H, W)), zero(d_depth_sum, (H, W)),
-                     zero(d_m2, (H, W)), zero(d_normal, (3, H, W)), zero(d_final_T, (H, W)),
-                     zero(d_median_depth, (H, W)), *ctx.grid)
+        with annotate("gs.composite_bwd", final_T):
+            g = backward(ranges, point_list, M, Dk, mean2d, opacity, colors, normals, final_T,
+                         n_contrib, zero(d_color, (3, H, W)), zero(d_depth_sum, (H, W)),
+                         zero(d_m2, (H, W)), zero(d_normal, (3, H, W)),
+                         zero(d_final_T, (H, W)), zero(d_median_depth, (H, W)), *ctx.grid)
         return g.M, g.Dk, g.mean2d, g.opacity, g.colors, g.normal, None, None, None, None
 
 

@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from gaustudio_torch.utils.observability import annotate, count
+
 # corner c of a cube: offset (c&1, (c>>1)&1, (c>>2)&1)
 _CUBE_OFFSETS = np.array(
     [[(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)], np.int64)
@@ -142,45 +144,49 @@ def marching_tetrahedra(
     X, Y, Z = values.shape
 
     all_pos, all_keys = [], []
-    for z0 in range(0, Z - 1, slab):
-        dz = min(slab, Z - 1 - z0)
-        pos, ga, gb = _slab_triangles(values[:, :, z0:z0 + dz + 1],
-                                      weight[:, :, z0:z0 + dz + 1], z0, iso, float(min_weight))
-        if pos.shape[0] == 0:
-            continue
-        all_pos.append(pos.cpu().numpy())
+    with annotate("gs.mesh.march"):
+        for z0 in range(0, Z - 1, slab):
+            dz = min(slab, Z - 1 - z0)
+            pos, ga, gb = _slab_triangles(values[:, :, z0:z0 + dz + 1],
+                                          weight[:, :, z0:z0 + dz + 1], z0, iso, float(min_weight))
+            if pos.shape[0] == 0:
+                continue
+            all_pos.append(pos.cpu().numpy())
 
-        def flat64(g):
-            g = g.cpu().numpy().astype(np.int64)
-            return (g[:, 0] * Y + g[:, 1]) * np.int64(Z + 1) + g[:, 2]
+            def flat64(g):
+                g = g.cpu().numpy().astype(np.int64)
+                return (g[:, 0] * Y + g[:, 1]) * np.int64(Z + 1) + g[:, 2]
 
-        ia, ib = flat64(ga), flat64(gb)
-        all_keys.append(np.stack([np.minimum(ia, ib), np.maximum(ia, ib)], axis=1))
+            ia, ib = flat64(ga), flat64(gb)
+            all_keys.append(np.stack([np.minimum(ia, ib), np.maximum(ia, ib)], axis=1))
 
     if not all_pos:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
 
-    pos = np.concatenate(all_pos)  # [3T, 3]
-    keys = np.concatenate(all_keys)
-    key1d = keys[:, 0] * np.int64(X * Y * (Z + 1) + 1) + keys[:, 1]
-    uniq, inverse = np.unique(key1d, return_inverse=True)
-    verts = np.zeros((len(uniq), 3), np.float32)
-    verts[inverse] = pos  # representatives (identical positions per edge)
-    faces = inverse.reshape(-1, 3).astype(np.int32)
+    with annotate("gs.mesh.dedup"):
+        pos = np.concatenate(all_pos)  # [3T, 3]
+        keys = np.concatenate(all_keys)
+        key1d = keys[:, 0] * np.int64(X * Y * (Z + 1) + 1) + keys[:, 1]
+        uniq, inverse = np.unique(key1d, return_inverse=True)
+        verts = np.zeros((len(uniq), 3), np.float32)
+        verts[inverse] = pos  # representatives (identical positions per edge)
+        faces = inverse.reshape(-1, 3).astype(np.int32)
 
-    # drop degenerate triangles (two vertices on the same edge)
-    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
-          & (faces[:, 0] != faces[:, 2]))
-    faces = faces[ok]
+        # drop degenerate triangles (two vertices on the same edge)
+        ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+              & (faces[:, 0] != faces[:, 2]))
+        faces = faces[ok]
 
-    # orient along the field gradient (positive side = outside for a TSDF)
-    centroids = verts[faces].mean(axis=1)
-    ci = np.clip(np.round(centroids).astype(int), 0, [X - 1, Y - 1, Z - 1])
-    g = _gradient_at(values.cpu().numpy(), ci)
-    e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
-    e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
-    flip = (np.cross(e1, e2) * g).sum(-1) < 0
-    faces[flip] = faces[flip][:, [0, 2, 1]]
+        # orient along the field gradient (positive side = outside for a TSDF)
+        centroids = verts[faces].mean(axis=1)
+        ci = np.clip(np.round(centroids).astype(int), 0, [X - 1, Y - 1, Z - 1])
+        g = _gradient_at(values.cpu().numpy(), ci)
+        e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
+        e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
+        flip = (np.cross(e1, e2) * g).sum(-1) < 0
+        faces[flip] = faces[flip][:, [0, 2, 1]]
 
-    verts_world = np.asarray(origin)[None, :] + verts * voxel_size
+        verts_world = np.asarray(origin)[None, :] + verts * voxel_size
+    count("gs.mesh.triangles", len(pos) // 3)
+    count("gs.mesh.vertices", len(uniq))
     return verts_world.astype(np.float32), faces

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaustudio_torch.ops import binning, composite, gaussian
+from gaustudio_torch.utils.observability import annotate, count
 
 BACKENDS = ("auto", "plain")
 
@@ -72,24 +73,28 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
         pix_offset = means2D_offset * torch.tensor(
             [0.5 * W, 0.5 * H], dtype=means2D_offset.dtype, device=means2D_offset.device)
 
-    pre = gaussian.preprocess(
-        means3D, torch.reshape(opacities, (-1,)), settings.viewmatrix,
-        settings.projmatrix, settings.campos, W, H, settings.tanfovx,
-        settings.tanfovy, antialias=settings.antialias, shs=shs,
-        sh_degree=settings.sh_degree if active_sh_degree is None else active_sh_degree,
-        colors_precomp=colors_precomp, scales=scales, rotations=rotations,
-        cov3d_precomp=cov3D_precomp, scale_modifier=settings.scale_modifier,
-        means2d_offset=pix_offset, intrinsics=settings.intrinsics,
-    )
+    with annotate("gs.preprocess", means3D):
+        pre = gaussian.preprocess(
+            means3D, torch.reshape(opacities, (-1,)), settings.viewmatrix,
+            settings.projmatrix, settings.campos, W, H, settings.tanfovx,
+            settings.tanfovy, antialias=settings.antialias, shs=shs,
+            sh_degree=settings.sh_degree if active_sh_degree is None else active_sh_degree,
+            colors_precomp=colors_precomp, scales=scales, rotations=rotations,
+            cov3d_precomp=cov3D_precomp, scale_modifier=settings.scale_modifier,
+            means2d_offset=pix_offset, intrinsics=settings.intrinsics,
+        )
+    count("gs.frustum", pre.valid)
+    count("gs.pixels", W * H)
 
     plain = settings.backend == "plain"
     binned = binning.bin_gaussians(gaussian.Preprocessed(*(x.detach() for x in pre)),
                                    grid_x, grid_y, plain=plain)
     bg = settings.bg if settings.bg is not None else torch.zeros(3)
-    out = composite.composite(pre.means2d, pre.conic, pre.opacities, pre.colors, pre.depths,
-                              bg.to(device=pre.depths.device, dtype=torch.float32),
-                              binned.ranges, binned.point_list, grid_x, grid_y, W, H,
-                              plain=plain)
+    with annotate("gs.composite", means3D):
+        out = composite.composite(pre.means2d, pre.conic, pre.opacities, pre.colors,
+                                  pre.depths, bg.to(device=pre.depths.device, dtype=torch.float32),
+                                  binned.ranges, binned.point_list, grid_x, grid_y, W, H,
+                                  plain=plain)
     if settings.debug:
         # the reference's debug=True dumps the kernel arguments for offline
         # repro (gaustudio_diff_gaussian_rasterization/__init__.py:83-90);

@@ -39,6 +39,7 @@ from gaustudio_torch.ops.gaussian import (
     transform_points,
 )
 from gaustudio_torch.ops.rasterize import BACKENDS
+from gaustudio_torch.utils.observability import annotate
 
 
 class SurfelPre(NamedTuple):
@@ -165,18 +166,20 @@ def rasterize_surfels(means3D, opacities, settings, *, scales, rotations, shs=No
         pix_offset = means2D_offset * torch.tensor(
             [0.5 * W, 0.5 * H], dtype=means2D_offset.dtype, device=means2D_offset.device)
 
-    pre = preprocess_surfel(
-        means3D, opacities, settings.viewmatrix, settings.projmatrix, settings.campos, W, H,
-        scales=scales, rotations=rotations, shs=shs,
-        sh_degree=settings.sh_degree if active_sh_degree is None else active_sh_degree,
-        colors_precomp=colors_precomp, scale_modifier=settings.scale_modifier,
-        means2d_offset=pix_offset)
+    with annotate("gs.preprocess", means3D):
+        pre = preprocess_surfel(
+            means3D, opacities, settings.viewmatrix, settings.projmatrix, settings.campos, W, H,
+            scales=scales, rotations=rotations, shs=shs,
+            sh_degree=settings.sh_degree if active_sh_degree is None else active_sh_degree,
+            colors_precomp=colors_precomp, scale_modifier=settings.scale_modifier,
+            means2d_offset=pix_offset)
 
     plain = settings.backend == "plain"
     binned = binning.bin_gaussians(binning_input(pre), grid_x, grid_y, plain=plain, cull=False)
-    out = composite_surfel.composite_surfel(
-        pre.M, pre.Dk, pre.mean2d, pre.opacities, pre.colors, pre.normal_view, binned.ranges,
-        binned.point_list, grid_x, grid_y, W, H, plain=plain)
+    with annotate("gs.composite", means3D):
+        out = composite_surfel.composite_surfel(
+            pre.M, pre.Dk, pre.mean2d, pre.opacities, pre.colors, pre.normal_view, binned.ranges,
+            binned.point_list, grid_x, grid_y, W, H, plain=plain)
     return {
         "render": out.color,
         "rendered_alpha": (1.0 - out.final_T)[None],

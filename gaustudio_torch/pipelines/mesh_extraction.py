@@ -23,6 +23,7 @@ from gaustudio_torch.ops import mcubes, tsdf
 from gaustudio_torch.utils import mesh as meshu
 from gaustudio_torch.utils.image import BackgroundWriter, save_image
 from gaustudio_torch.utils.misc import resolve_device
+from gaustudio_torch.utils.observability import annotate
 
 
 def write_cam_file(path: str, camera: Camera) -> None:
@@ -69,9 +70,11 @@ def iter_fused_depths(renderer, pcd, cameras: List[Camera], work_dir=None):
             invalid = out["rendered_final_opacity"][0] < 0.5
             depth = torch.where(invalid, 0.0, out["rendered_median_depth"][0])
             if work_dir is not None:
-                writer.submit(_save_view_files, work_dir, camera.image_name or f"view_{i:04d}",
-                              camera, invalid.cpu().numpy(),
-                              out["render"].permute(1, 2, 0).cpu().numpy())
+                with annotate("gs.mesh.view_files"):
+                    writer.submit(_save_view_files, work_dir,
+                                  camera.image_name or f"view_{i:04d}", camera,
+                                  invalid.cpu().numpy(),
+                                  out["render"].permute(1, 2, 0).cpu().numpy())
             yield camera, depth
 
 
@@ -119,9 +122,11 @@ def _fuse_views_dp(renderer, pcd, cameras: List[Camera], vol, work_dir, mesh):
                 tsdf.integrate_batch(vol, depths, rc.intrinsics, rc.world_to_cam)
                 if comm.dp_rank < len(chunk):  # a pad view writes nothing
                     gi, camera = chunk[comm.dp_rank]
-                    writer.submit(_save_view_files, work_dir, camera.image_name or f"view_{gi:04d}",
-                                  camera, invalid[0].cpu().numpy(),
-                                  out["render"][0].permute(1, 2, 0).cpu().numpy())
+                    with annotate("gs.mesh.view_files"):
+                        writer.submit(_save_view_files, work_dir,
+                                      camera.image_name or f"view_{gi:04d}", camera,
+                                      invalid[0].cpu().numpy(),
+                                      out["render"][0].permute(1, 2, 0).cpu().numpy())
     return vol
 
 
@@ -158,28 +163,32 @@ def extract_mesh(
     when ``work_dir`` is given.
     """
     device = resolve_device(device)
-    cams = [c.downsample_scale(downsample) for c in cameras[::stride]]
-    lo, hi = tsdf.integrate_points_bounds(pcd.get_attribute("xyz"))
-    vol = tsdf.volume_from_bounds(lo, hi, voxel_size, sdf_trunc, max_dim=max_dim,
-                                  device=device)
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if world > 1 and not renderer.view_dependent_gaussians:
-        from gaustudio_torch.parallel import make_mesh
+    with annotate("gs.extract_mesh"):
+        cams = [c.downsample_scale(downsample) for c in cameras[::stride]]
+        lo, hi = tsdf.integrate_points_bounds(pcd.get_attribute("xyz"))
+        vol = tsdf.volume_from_bounds(lo, hi, voxel_size, sdf_trunc, max_dim=max_dim,
+                                      device=device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        with annotate("gs.mesh.views"):
+            if world > 1 and not renderer.view_dependent_gaussians:
+                from gaustudio_torch.parallel import make_mesh
 
-        vol = _fuse_views_dp(renderer, pcd, cams, vol, work_dir,
-                             make_mesh(dp=world, gs=1, device=device))
-        if dist.get_rank() != 0:
-            return None
-    else:
-        # render and integrate view by view: one depth map on the device at a time
-        for camera, depth in iter_fused_depths(renderer, pcd, cams, work_dir):
-            tsdf.integrate(vol, depth, camera.intrinsics, camera.extrinsics)
+                vol = _fuse_views_dp(renderer, pcd, cams, vol, work_dir,
+                                     make_mesh(dp=world, gs=1, device=device))
+                if dist.get_rank() != 0:
+                    return None
+            else:
+                # render and integrate view by view: one depth map on the device at a time
+                for camera, depth in iter_fused_depths(renderer, pcd, cams, work_dir):
+                    with annotate("gs.mesh.integrate", depth):
+                        tsdf.integrate(vol, depth, camera.intrinsics, camera.extrinsics)
 
-    verts, faces = mcubes.marching_tetrahedra(
-        vol.tsdf, iso=0.0, weight=vol.weight, min_weight=min_weight,
-        origin=vol.origin.cpu().numpy(), voxel_size=float(vol.voxel_size), slab=4)
-    if clean:
-        verts, faces = meshu.clean_mesh_components(verts, faces, ratio_threshold=0.5)
-    if work_dir is not None:
-        meshu.save_mesh(os.path.join(work_dir, "fused_mesh.ply"), verts, faces)
-    return verts, faces
+        verts, faces = mcubes.marching_tetrahedra(
+            vol.tsdf, iso=0.0, weight=vol.weight, min_weight=min_weight,
+            origin=vol.origin.cpu().numpy(), voxel_size=float(vol.voxel_size), slab=4)
+        if clean:
+            verts, faces = meshu.clean_mesh_components(verts, faces, ratio_threshold=0.5)
+        if work_dir is not None:
+            with annotate("gs.mesh.ply"):
+                meshu.save_mesh(os.path.join(work_dir, "fused_mesh.ply"), verts, faces)
+        return verts, faces

@@ -37,6 +37,7 @@ from gaustudio_torch.pipelines.optimizers.general import (
     exp_lr_schedule,
 )
 from gaustudio_torch.utils.misc import resolve_device
+from gaustudio_torch.utils.observability import annotate
 
 PARAMS = ("xyz", "f_dc", "f_rest", "opacity", "scale", "rot")
 
@@ -158,22 +159,24 @@ def state_to_model(state: TrainState, pcd):
 def _features(params) -> torch.Tensor:
     """Band-major [N, 16, 3] SH coefficients from the stored layout."""
     n = params["f_dc"].shape[0]
-    f_dc = params["f_dc"].reshape(n, 1, 3)
-    f_rest = params["f_rest"].reshape(n, 3, -1).transpose(1, 2)
-    return torch.cat([f_dc, f_rest], dim=1)
+    with annotate("gs.features", params["f_dc"]):
+        f_dc = params["f_dc"].reshape(n, 1, 3)
+        f_rest = params["f_rest"].reshape(n, 3, -1).transpose(1, 2)
+        return torch.cat([f_dc, f_rest], dim=1)
 
 
 def render_from_params(params, active_sh_degree: int, settings: RasterizeSettings,
                        means2d_offset=None):
     """Differentiable render of the raw parameters."""
     rot = params["rot"]
-    return rast.rasterize(
-        params["xyz"], torch.sigmoid(params["opacity"][:, 0]), settings,
-        shs=_features(params), scales=torch.exp(params["scale"]),
-        # x rsqrt(|x|^2 + eps): a zero quaternion keeps a finite gradient
-        rotations=rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-18),
-        means2D_offset=means2d_offset, active_sh_degree=active_sh_degree,
-    )
+    with annotate("gs.render"):
+        return rast.rasterize(
+            params["xyz"], torch.sigmoid(params["opacity"][:, 0]), settings,
+            shs=_features(params), scales=torch.exp(params["scale"]),
+            # x rsqrt(|x|^2 + eps): a zero quaternion keeps a finite gradient
+            rotations=rot * torch.rsqrt(torch.sum(rot * rot, dim=-1, keepdim=True) + 1e-18),
+            means2D_offset=means2d_offset, active_sh_degree=active_sh_degree,
+        )
 
 
 def train_step(state: TrainState, batch: CameraBatch, settings: RasterizeSettings,
@@ -188,9 +191,10 @@ def train_step(state: TrainState, batch: CameraBatch, settings: RasterizeSetting
     out = render_from_params(params, state.active_sh_degree, s, means2d_offset=offset)
     # the background is composited in the loss, pred = C + T_final bg: the
     # forward leaves it out and autograd gives the reference's bg term
-    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
-    pred = out["render"] + bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0])
-    loss = ssim_ops.rgb_loss(pred, batch.gt_image, cfg.lambda_dssim)
+    with annotate("gs.loss", out["render"]):
+        bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=device)
+        pred = out["render"] + bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0])
+        loss = ssim_ops.rgb_loss(pred, batch.gt_image, cfg.lambda_dssim)
     metrics = {
         "loss": loss.detach(),
         "psnr": ssim_ops.psnr(out["render"].detach(), batch.gt_image),
@@ -214,11 +218,12 @@ def optimise(state: TrainState, params, offset, loss, radii, cfg: TrainConfig) -
     points) -> the densification statistics of the visible rows and one Adam
     step; returns the next state."""
     leaves = [params[k] for k in PARAMS] + [offset]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    with annotate("gs.backward", loss):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     vs_grads = grads.pop()
 
-    with torch.no_grad():
+    with torch.no_grad(), annotate("gs.adam", loss):
         visible = radii > 0
         xyz_grad_accum = state.xyz_grad_accum + torch.where(
             visible, torch.linalg.vector_norm(vs_grads, dim=-1), 0.0)
@@ -359,36 +364,40 @@ class Trainer:
         history = []
         try:
             for it in range(self.state.step + 1, iters + 1):
-                self.state, metrics = self.step(next_batch(), settings)
+                with annotate("gs.step"):
+                    with annotate("gs.loader_wait"):
+                        batch = next_batch()
+                    self.state, metrics = self.step(batch, settings)
 
-                if it % cfg.sh_increase_interval == 0:
-                    self.state = oneup_sh_degree(self.state, cfg.max_sh_degree)
-                if cfg.densify_from_iter < it < cfg.densify_until_iter:
-                    if it % cfg.densification_interval == 0:
-                        self.state, self._last_densify = densify_and_prune(
-                            self.state, self.generator, self.extent, cfg,
-                            it > cfg.opacity_reset_interval)
-                    if it % cfg.opacity_reset_interval == 0:
-                        self.state = reset_opacity(self.state)
+                    if it % cfg.sh_increase_interval == 0:
+                        self.state = oneup_sh_degree(self.state, cfg.max_sh_degree)
+                    if cfg.densify_from_iter < it < cfg.densify_until_iter:
+                        if it % cfg.densification_interval == 0:
+                            with annotate("gs.densify", self.state.params["xyz"]):
+                                self.state, self._last_densify = densify_and_prune(
+                                    self.state, self.generator, self.extent, cfg,
+                                    it > cfg.opacity_reset_interval)
+                        if it % cfg.opacity_reset_interval == 0:
+                            self.state = reset_opacity(self.state)
 
-                if it % log_every == 0 or it == iters:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["iter"] = it
-                    if self._last_densify:
-                        m.update(self._last_densify)
-                        self._last_densify = None
-                    history.append(m)
-                    if logger:
-                        logger.log(it, **{k: v for k, v in m.items() if k != "iter"})
-                    if not np.isfinite(m["loss"]):
-                        snapshot_on_nonfinite(
-                            {"params": self.state.params, "loss": metrics["loss"]},
-                            (metrics_path or "train") + ".snapshot.pt", context=f"iter {it}")
-                        raise FloatingPointError(f"non-finite loss at iter {it}")
-                    if callback:
-                        callback(m)
-                if checkpoint_dir and checkpoint_every and it % checkpoint_every == 0:
-                    save_checkpoint(os.path.join(checkpoint_dir, f"step_{it}.pt"), self.state)
+                    if it % log_every == 0 or it == iters:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["iter"] = it
+                        if self._last_densify:
+                            m.update(self._last_densify)
+                            self._last_densify = None
+                        history.append(m)
+                        if logger:
+                            logger.log(it, **{k: v for k, v in m.items() if k != "iter"})
+                        if not np.isfinite(m["loss"]):
+                            snapshot_on_nonfinite(
+                                {"params": self.state.params, "loss": metrics["loss"]},
+                                (metrics_path or "train") + ".snapshot.pt", context=f"iter {it}")
+                            raise FloatingPointError(f"non-finite loss at iter {it}")
+                        if callback:
+                            callback(m)
+                    if checkpoint_dir and checkpoint_every and it % checkpoint_every == 0:
+                        save_checkpoint(os.path.join(checkpoint_dir, f"step_{it}.pt"), self.state)
         finally:
             next_batch.close()
             if logger:

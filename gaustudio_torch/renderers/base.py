@@ -14,6 +14,7 @@ import torch
 from gaustudio_torch.ops import rasterize as rast
 from gaustudio_torch.ops.rasterize import RasterizeSettings
 from gaustudio_torch.utils.misc import resolve_device
+from gaustudio_torch.utils.observability import annotate
 
 
 class BaseRenderer:
@@ -49,28 +50,29 @@ class BaseRenderer:
     @torch.inference_mode()
     def render(self, viewpoint_camera, gaussian_model):
         """Render one camera; returns the JAX package's output dict."""
-        (xyz, shs, colors_precomp, opacity, scales, rotations, cov3D_precomp) = (
-            self.get_gaussians_properties(viewpoint_camera, gaussian_model))
-        settings = self.make_settings(viewpoint_camera, gaussian_model, xyz.device)
-        active_deg = getattr(gaussian_model, "active_sh_degree", None)
-        out = rast.rasterize(
-            xyz, opacity, settings, shs=shs, colors_precomp=colors_precomp,
-            scales=scales, rotations=rotations, cov3D_precomp=cov3D_precomp,
-            active_sh_degree=active_deg if shs is not None else None,
-        )
-        return {
-            "render": out["render"],
-            "rendered_depth": out["rendered_depth"],
-            "rendered_median_depth": out["rendered_median_depth"],
-            "rendered_median_weight": out["rendered_median_weight"],
-            "rendered_median_id": out["rendered_median_id"],
-            "viewspace_points": torch.zeros((xyz.shape[0], 2), device=xyz.device),
-            "visibility_filter": out["radii"] > 0,
-            "rendered_final_opacity": out["rendered_final_opacity"],
-            "radii": out["radii"],
-            "n_contrib": out["n_contrib"],
-            "num_rendered": out["num_rendered"],
-        }
+        with annotate("gs.render"):
+            (xyz, shs, colors_precomp, opacity, scales, rotations, cov3D_precomp) = (
+                self.get_gaussians_properties(viewpoint_camera, gaussian_model))
+            settings = self.make_settings(viewpoint_camera, gaussian_model, xyz.device)
+            active_deg = getattr(gaussian_model, "active_sh_degree", None)
+            out = rast.rasterize(
+                xyz, opacity, settings, shs=shs, colors_precomp=colors_precomp,
+                scales=scales, rotations=rotations, cov3D_precomp=cov3D_precomp,
+                active_sh_degree=active_deg if shs is not None else None,
+            )
+            return {
+                "render": out["render"],
+                "rendered_depth": out["rendered_depth"],
+                "rendered_median_depth": out["rendered_median_depth"],
+                "rendered_median_weight": out["rendered_median_weight"],
+                "rendered_median_id": out["rendered_median_id"],
+                "viewspace_points": torch.zeros((xyz.shape[0], 2), device=xyz.device),
+                "visibility_filter": out["radii"] > 0,
+                "rendered_final_opacity": out["rendered_final_opacity"],
+                "radii": out["radii"],
+                "n_contrib": out["n_contrib"],
+                "num_rendered": out["num_rendered"],
+            }
 
     def dp_render_closure(self, cameras, gaussian_model):
         """``(settings, render_fn)`` for the camera-parallel renderers

@@ -13,6 +13,7 @@ from gaustudio_torch.ops import rasterize_surfel
 from gaustudio_torch.ops.gaussian import transform_dirs
 from gaustudio_torch.ops.sh import eval_sh
 from gaustudio_torch.renderers.base import BaseRenderer
+from gaustudio_torch.utils.observability import annotate
 
 
 @renderers.register("surfel_renderer")
@@ -72,34 +73,35 @@ class SurfelRenderer(BaseRenderer):
     @torch.inference_mode()
     def render(self, viewpoint_camera, gaussian_model):
         """Render one camera; returns the JAX surfel renderer's output dict."""
-        xyz, shs, colors_precomp, opacity, scales, rotations, _ = (
-            self.get_gaussians_properties(viewpoint_camera, gaussian_model))
-        settings = self.make_settings(viewpoint_camera, gaussian_model, xyz.device)
-        active_deg = getattr(gaussian_model, "active_sh_degree", None)
-        out = rasterize_surfel.rasterize_surfels(
-            xyz, opacity, settings, scales=scales, rotations=rotations, shs=shs,
-            colors_precomp=colors_precomp,
-            active_sh_degree=active_deg if shs is not None else None)
-        alpha = out["rendered_alpha"]
-        depth = torch.nan_to_num(out["rendered_depth_sum"] / torch.clamp_min(alpha, 1e-9),
-                                 0.0, 0.0)
-        # view normals to world, n @ R per pixel with R the rotation block of
-        # the transposed world -> view matrix; written out, so no TF32 matmul
-        n_world = transform_dirs(out["rendered_normal_view"].permute(1, 2, 0),
-                                 settings.viewmatrix[:3, :3])
-        return {
-            "render": out["render"],
-            "rendered_normal": n_world.permute(2, 0, 1),
-            "rendered_depth": depth,
-            "rendered_median_depth": out["rendered_median_depth"],
-            "rendered_median_weight": out["rendered_median_weight"],
-            "rendered_median_id": out["rendered_median_id"],
-            "rendered_dist_m1": out["rendered_dist_m1"],
-            "rendered_dist_m2": out["rendered_dist_m2"],
-            "viewspace_points": torch.zeros((xyz.shape[0], 2), device=xyz.device),
-            "visibility_filter": out["radii"] > 0,
-            "rendered_final_opacity": alpha,
-            "radii": out["radii"],
-            "n_contrib": out["n_contrib"],
-            "num_rendered": out["num_rendered"],
-        }
+        with annotate("gs.render"):
+            xyz, shs, colors_precomp, opacity, scales, rotations, _ = (
+                self.get_gaussians_properties(viewpoint_camera, gaussian_model))
+            settings = self.make_settings(viewpoint_camera, gaussian_model, xyz.device)
+            active_deg = getattr(gaussian_model, "active_sh_degree", None)
+            out = rasterize_surfel.rasterize_surfels(
+                xyz, opacity, settings, scales=scales, rotations=rotations, shs=shs,
+                colors_precomp=colors_precomp,
+                active_sh_degree=active_deg if shs is not None else None)
+            alpha = out["rendered_alpha"]
+            depth = torch.nan_to_num(out["rendered_depth_sum"] / torch.clamp_min(alpha, 1e-9),
+                                     0.0, 0.0)
+            # view normals to world, n @ R per pixel with R the rotation block of
+            # the transposed world -> view matrix; written out, so no TF32 matmul
+            n_world = transform_dirs(out["rendered_normal_view"].permute(1, 2, 0),
+                                     settings.viewmatrix[:3, :3])
+            return {
+                "render": out["render"],
+                "rendered_normal": n_world.permute(2, 0, 1),
+                "rendered_depth": depth,
+                "rendered_median_depth": out["rendered_median_depth"],
+                "rendered_median_weight": out["rendered_median_weight"],
+                "rendered_median_id": out["rendered_median_id"],
+                "rendered_dist_m1": out["rendered_dist_m1"],
+                "rendered_dist_m2": out["rendered_dist_m2"],
+                "viewspace_points": torch.zeros((xyz.shape[0], 2), device=xyz.device),
+                "visibility_filter": out["radii"] > 0,
+                "rendered_final_opacity": alpha,
+                "radii": out["radii"],
+                "n_contrib": out["n_contrib"],
+                "num_rendered": out["num_rendered"],
+            }

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from gaustudio_torch.utils.observability import annotate
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples a pixel, by colour type
 
@@ -270,7 +272,8 @@ class BackgroundWriter:
 
     def submit(self, fn, *args) -> None:
         if len(self._pending) >= MAX_PENDING_WRITES:
-            self._pending.pop(0).result()
+            with annotate("gs.mesh.writer_wait"):
+                self._pending.pop(0).result()
         self._pending.append(self._pool.submit(fn, *args))
 
     def __enter__(self):
@@ -278,7 +281,8 @@ class BackgroundWriter:
 
     def __exit__(self, *exc):
         try:
-            for f in self._pending:
-                f.result()
+            with annotate("gs.mesh.writer_wait"):
+                for f in self._pending:
+                    f.result()
         finally:
             self._pool.shutdown()

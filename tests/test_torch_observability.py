@@ -48,7 +48,9 @@ def test_trace_writes_one_file_with_the_annotated_regions(tmp_path, scene):
         for _ in range(2):
             with obs.annotate("frame"):
                 renderer.render(cam, pcd)
-    assert os.listdir(log_dir) == [os.path.basename(path)]
+    # the trace and, beside it, the block's span report
+    assert sorted(os.listdir(log_dir)) == sorted(
+        [os.path.basename(path), os.path.basename(obs.report_path(path))])
     assert path.endswith(".pt.trace.json") and os.path.basename(path).startswith("fly.")
     with open(path) as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]
