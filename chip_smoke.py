@@ -12,28 +12,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    first use, one nvcc per source (build seconds and ptxas register counts);
 3. kernels: each kernel (K1 duplicate_with_keys, K2 identify_tile_ranges,
    K3 render_tiles, K4 render_tiles_backward; K1 without the cull, K5
-   render_surfel_tiles and K6 render_surfel_tiles_backward) against its plain
-   PyTorch version on the card, on a mini_scene view (vanilla, and the same
-   model as 2DGS surfels) and on one 1920x1080 view of a 300k-Gaussian
-   SH-3 model (K1-K4) and of a 200k-surfel SH-3 model (K1, K2, K5, K6), with
-   the tolerances stated below; then each kernel's time against its plain
-   version's (and, for K2, torch.searchsorted's) at the 1080p shapes (K1, K2
-   and torch.searchsorted on the device by torch.profiler, K1 over every op
-   of its wrapper, with the host time of a call beside it; the others by
-   CUDA events), and the time of the torch-op stages (activations +
-   preprocess, the sort); then K1-K6 on the hard cases (hard_case: one
-   Gaussian or surfel in every tile, warps that end far apart, more than
-   256 entries a pixel, a ragged image whose bottom tiles hold an odd number
-   of rows), K1 in both modes on its own (k1_case: a full-screen primitive
+   render_surfel_tiles and K6 render_surfel_tiles_backward; K7
+   preprocess_forward) against its plain PyTorch version on the card, on a
+   mini_scene view (vanilla, and the same model as 2DGS surfels) and on one
+   1920x1080 view of a 300k-Gaussian SH-3 model (K1-K4, K7) and of a
+   200k-surfel SH-3 model (K1, K2, K5, K6), with the tolerances stated
+   below; then each kernel's time against its plain version's (and, for K2,
+   torch.searchsorted's) at the 1080p shapes (K1, K2 and torch.searchsorted
+   on the device by torch.profiler, K1 over every op of its wrapper, with
+   the host time of a call beside it; K7 by torch.profiler and CUDA events,
+   also at 3M Gaussians x 1237x822, with its bytes bound, launches and
+   registers; the others by CUDA events), and the time of the torch-op
+   stages (activations + preprocess, the sort); then K1-K6 on the hard cases
+   (hard_case: one Gaussian or surfel in every tile, warps that end far
+   apart, more than 256 entries a pixel, a ragged image whose bottom tiles
+   hold an odd number of rows), K1 in both modes on its own (k1_case: a full-screen primitive
    among thousands of small ones, 1, 31 and 33 primitives, rows with no
-   tiles inside a warp, a view where the cull keeps nothing) and K2 on empty
+   tiles inside a warp, a view where the cull keeps nothing), K7 on every
+   branch of gaussian.preprocess and its hard rows (k7_case) and K2 on empty
    and single-entry tiles;
 4. render path on the fixture: gs-render on tests/fixtures/mini_scene, and
    the renderer's PSNR against GOLDEN.json (within 0.15 dB);
 5. render path at full width: gs-render of the 300k model from three
    1920x1080 cameras, with the launch counts of that run, the lit-fraction
-   guard, rasterize() timed warm against the plain path, and the device's
-   busy share of a warm render;
+   guard, rasterize() timed warm against the plain path, the device's
+   busy share of a warm render, and the middle view's rasterize() with K7
+   against the same call through the torch preprocess (compare_k7_render);
 6. training path on the fixture: gs-train for 1000 iterations from the
    fixture's sparse points (densification at 600-1000), with the launch
    counts of that run, and the PSNR of the exported model against that of
@@ -74,8 +78,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and scaffold (30k anchors at the config's widths from make_scene(30000)'s
    means: 300k decoded Gaussians) from the three 1080p cameras, each with
    its launches (K1-K3, not K4), lit fraction, middle view through the
-   kernels against the plain path (K3's tolerance), rasterize() wall and
-   busy share; mip's filtered opacities at most the raw ones, gsplat's image
+   kernels against the plain path (K3's tolerance), with K7 against the
+   torch preprocess (compare_k7_render), rasterize() wall and busy share;
+   mip's filtered opacities at most the raw ones, gsplat's image
    not vanilla's; then 30 Scaffold steps at 1080p against the vanilla
    scene's renders (K1-K4, ms/it, stages, busy share) and one
    adjust_anchors, timed; 6 Scaffold steps on the fixture with the kernels
@@ -223,6 +228,10 @@ K3_ATOL = K3_RTOL = 1e-5
 K4_RTOL, K4_ATOL = 2e-3, 2e-5
 # K5 and K6 are held to K3's and K4's tolerances, for the same reasons: the
 # intersection and alpha are one unfused helper (gs_surfel_hit in common.cuh).
+# K7 computes gaussian.preprocess op for op, unfused, so its integer outputs,
+# valid, depth, mean, conic and opacity agree exactly; its colour sums the SH
+# terms in another order than the einsum, within K3's tolerance.
+K7_COLOR_ATOL = K7_COLOR_RTOL = 1e-5
 SURFEL_N = 200_000  # bench_all.py bench_surfel_render
 SURFEL_TRAIN_W = SURFEL_TRAIN_H = 512  # bench_all.py bench_surfel_train_step
 SURFEL_TRAIN_N = 60_000
@@ -242,12 +251,13 @@ SURFEL_CONFIG = {"name": "vanilla_pcd", "attributes": {
 # pass in tile_max_alpha_keep; K2 1 compare per entry; per (entry, pixel)
 # pair a pixel evaluates, K3 ~20 (power, exp, alpha, tests, blend), K4 ~60,
 # K5 ~45 (gs_surfel_hit ~33, the tests and the 13-value blend) and K6 ~110
-# (the hit and the VJP of the intersection).
+# (the hit and the VJP of the intersection); K7 ~300 per Gaussian (the
+# covariances, the rects and the SH 3 colour).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS = {"duplicate_with_keys": 79, "identify_tile_ranges": 1, "render_tiles": 20,
        "render_tiles_backward": 60, "render_surfel_tiles": 45,
-       "render_surfel_tiles_backward": 110}
+       "render_surfel_tiles_backward": 110, "preprocess_forward": 300}
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "duplicate_with_keys": ("gaustudio_torch/csrc/binning.cu",
@@ -265,6 +275,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "render_surfel_tiles_backward": ("gaustudio_torch/csrc/composite_surfel_bwd.cu",
                                      "gaustudio_tpu/ops/rasterize_surfel_pallas_bwd.py:57 (B8), "
                                      "gaustudio_tpu/ops/rasterize_pallas_bwd.py:451 (B5)"),
+    "preprocess_forward": ("gaustudio_torch/csrc/preprocess.cu",
+                           "none: gaustudio_tpu/ops/gaussian.py preprocess is left to XLA's "
+                           "fusion"),
 }
 # K1's kernels by name, of this design and of the one before it (so that
 # --ab can print a parent's by-name time too)
@@ -441,16 +454,22 @@ def load_cameras(path: str, device):
         return [JSON_to_camera(cj, device=device) for cj in json.load(f)]
 
 
-def view_preprocess(renderer, cam, pcd):
-    """The Preprocessed of one view, exactly as rasterize() computes it."""
-    from gaustudio_torch.ops import gaussian
-
+def view_inputs(renderer, cam, pcd) -> dict:
+    """preprocess's keyword arguments for one view, as rasterize() passes them."""
     xyz, shs, _, opacity, scales, rotations, _ = renderer.get_gaussians_properties(cam, pcd)
     st = renderer.make_settings(cam, pcd, xyz.device)
-    return gaussian.preprocess(
-        xyz, opacity.reshape(-1), st.viewmatrix, st.projmatrix, st.campos,
-        st.image_width, st.image_height, st.tanfovx, st.tanfovy, shs=shs,
-        sh_degree=pcd.active_sh_degree, scales=scales, rotations=rotations)
+    return dict(means3d=xyz, opacities=opacity.reshape(-1), viewmatrix=st.viewmatrix,
+                projmatrix=st.projmatrix, campos=st.campos, image_width=st.image_width,
+                image_height=st.image_height, tan_fovx=st.tanfovx, tan_fovy=st.tanfovy, shs=shs,
+                sh_degree=pcd.active_sh_degree, scales=scales, rotations=rotations)
+
+
+def view_preprocess(renderer, cam, pcd):
+    """The Preprocessed of one view, as rasterize() computes it under autograd
+    (gaussian.preprocess, the plain version of K7)."""
+    from gaustudio_torch.ops import gaussian
+
+    return gaussian.preprocess(**view_inputs(renderer, cam, pcd))
 
 
 def view_preprocess_surfel(renderer, cam, pcd):
@@ -976,7 +995,8 @@ def compare_k1(pre, grid_x: int, cull: bool, what: str) -> tuple:
 def compare_hard_cases(device) -> dict:
     """K1-K4 against their plain versions on the hard cases, K1 without the
     cull, K5 and K6 on their surfel forms, K1 in both modes on the cases of
-    k1_case and K2 on those of k2_cases; returns {kernel: max abs error}."""
+    k1_case, K7 on those of k7_case and K2 on those of k2_cases; returns
+    {kernel: max abs error}."""
     from gaustudio_torch.ops import binning
 
     errs = {}
@@ -1006,6 +1026,10 @@ def compare_hard_cases(device) -> dict:
             f"rect {int(pre.tiles_touched.max())} tiles, {int((pre.tiles_touched == 0).sum())} "
             f"with none; entries {entries[0]} with the cull, {entries[1]} without; "
             "max|err| 0 in both modes")
+    for name in K7_CASES:
+        kw, _, _ = k7_case(name, device)
+        errs["preprocess_forward"] = max(errs.get("preprocess_forward", 0.0),
+                                         compare_k7(kw, f"case {name}"))
     for name, (keys, num_tiles) in k2_cases(device).items():
         got = binning.identify_tile_ranges(keys, num_tiles)
         want = binning.identify_tile_ranges_plain(keys, num_tiles)
@@ -1013,6 +1037,240 @@ def compare_hard_cases(device) -> dict:
         say("kernels", f"K2 case {name}: max|err| {err}")
         check(err == 0, f"K2 disagrees with its plain version: {name}")
     return errs
+
+
+# --- phase 3: K7 preprocess_forward against gaussian.preprocess ----------
+
+K7_CASES = ("sh16", "sh16_deg1", "sh1", "sh4", "sh9", "sh25_deg0", "sh25_deg3", "colors",
+            "cov3d", "scale_modifier", "intrinsics", "antialias", "intrinsics_antialias",
+            "offset", "n0", "n1", "n31", "n33", "edges", "cov3d_edges")
+K7_W, K7_H, K7_N = 1237, 822, 3_000_000  # the 3M timing: a Mip-NeRF 360 view and model
+
+
+def k7_camera(W: int, H: int, seed: int) -> dict:
+    """A seeded camera turned off every axis: (viewmatrix, projmatrix, campos,
+    intrinsics) as float32 numpy arrays, the W2V rotation R and translation t
+    (float64) and tan(fov / 2) (x, y), with tan_x 0.7 and square pixels."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=4) * np.array([4.0, 0.3, 0.3, 0.3])
+    w, x, y, z = q / np.linalg.norm(q)
+    R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                  [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                  [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+    t = rng.normal(size=3)
+    w2v = np.eye(4)
+    w2v[:3, :3], w2v[:3, 3] = R, t
+    tan_x = 0.7
+    tan_y = tan_x * H / W
+    P = np.zeros((4, 4))
+    P[0, 0], P[1, 1] = 1 / tan_x, 1 / tan_y
+    P[2, 2] = 100 / (100 - 0.01)
+    P[2, 3] = -(100 * 0.01) / (100 - 0.01)
+    P[3, 2] = 1.0
+    f32 = np.float32
+    return {"viewmatrix": w2v.T.astype(f32), "projmatrix": (w2v.T @ P.T).astype(f32),
+            "campos": (-R.T @ t).astype(f32), "R": R, "t": t, "tan": (tan_x, tan_y),
+            "intrinsics": np.array([W / (2 * tan_x), H / (2 * tan_y), 0.47 * W, 0.53 * H], f32)}
+
+
+def k7_case(name: str, device) -> tuple:
+    """(preprocess's keyword arguments, W, H) of one seeded view that takes
+    one branch of preprocess, or its hard rows, on ``device``; 3000 Gaussians
+    on 200x120 (but n0-n33), rows in view space mapped to the world:
+
+    * sh16, sh16_deg1, sh1, sh4, sh9, sh25_deg0, sh25_deg3: K SH
+      coefficients at an active degree (3 unless named), max_deg capped at 3;
+    * colors: colors_precomp; cov3d: cov3d_precomp (random positive
+      definite); scale_modifier: 1.37;
+    * intrinsics (gsplat's projection, principal point off centre),
+      antialias, intrinsics_antialias, offset (a means2d_offset);
+    * n0, n1, n31, n33: that many Gaussians (none, a ragged last warp);
+    * edges: behind the camera, at the near plane (z 0.2 and a float step
+      either side), w about 0 (z 0, +-1e-8), opacity at and around 1/255
+      (and 0, 1e-13), means and rects far off screen that clamp to the
+      grid's edges, huge (1e3, 50) and sub-pixel (1e-4, 1e-7, 0) scales;
+    * cov3d_edges: cov3d_precomp with det <= 0 (indefinite), negative
+      definite, zero and overflowing (1e30) covariances.
+    """
+    rng = np.random.default_rng(K7_CASES.index(name) + 71)
+    W, H = 200, 120
+    cam = k7_camera(W, H, K7_CASES.index(name))
+    n = {"n0": 0, "n1": 1, "n31": 31, "n33": 33}.get(name, 3000)
+    tan_x, tan_y = cam["tan"]
+    vz = rng.uniform(0.5, 8.0, n)
+    vx, vy = rng.uniform(-1.3, 1.3, n) * tan_x * vz, rng.uniform(-1.3, 1.3, n) * tan_y * vz
+    scales = np.exp(rng.normal(size=(n, 3)) * 0.6) * 0.03
+    op = rng.uniform(0.0, 1.0, n)
+    if name == "edges":
+        vz[:6] = [-1.0, -0.1, 0.0, 1e-8, -1e-8, 0.2]  # behind, w ~ 0, the near plane
+        vz[6:8] = np.nextafter(np.float32(0.2), np.float32([0, 1])).astype(np.float64)
+        vx[:8] = vy[:8] = 0.01
+        op[8:14] = [1 / 255, float(np.float32(1 / 255)), float(np.nextafter(
+            np.float32(1 / 255), np.float32(1))), 0.0, 1e-13, 1e-3]
+        vx[14:20] = np.array([-3, 3, -30, 30, -1.5, 1.5]) * tan_x * vz[14:20]  # off screen
+        vy[17:23] = np.array([-3, 3, 30, -1.5, 1.5, -30]) * tan_y * vz[17:23]
+        scales[14:23] *= 40.0
+        scales[23:28] = np.array([1e3, 50.0, 1e-4, 1e-7, 0.0])[:, None]
+    world = (np.stack([vx, vy, vz], 1) - cam["t"]) @ cam["R"]  # R^T (v - t)
+    quats = rng.normal(size=(n, 4))  # not normalised, as build_cov3d takes them
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+    kw = dict(means3d=f32(world), opacities=f32(op), viewmatrix=f32(cam["viewmatrix"]),
+              projmatrix=f32(cam["projmatrix"]), campos=f32(cam["campos"]), image_width=W,
+              image_height=H, tan_fovx=tan_x, tan_fovy=tan_y)
+    if name.startswith("cov3d"):
+        A = rng.normal(size=(n, 3, 3)) * 0.03
+        cov = A @ A.transpose(0, 2, 1)
+        if name == "cov3d_edges":
+            cov[:4] = [[[1, 10, 0], [10, 1, 0], [0, 0, 1]], -np.eye(3) * 5, np.zeros((3, 3)),
+                       np.eye(3) * 1e30]
+            cov[4:8] = np.array([[1.0, 3.0, 0.5], [3.0, 1.0, 0.2], [0.5, 0.2, 1.0]]) * 0.01
+        kw["cov3d_precomp"] = f32(cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]])
+    else:
+        kw.update(scales=f32(scales), rotations=f32(quats))
+    if name == "colors":
+        kw["colors_precomp"] = f32(rng.uniform(0, 1, (n, 3)))
+    else:
+        num, deg = {"sh1": (1, 3), "sh4": (4, 3), "sh9": (9, 3), "sh25_deg0": (25, 0),
+                    "sh25_deg3": (25, 3), "sh16_deg1": (16, 1)}.get(name, (16, 3))
+        kw.update(shs=f32(rng.normal(size=(n, num, 3)) * 0.3), sh_degree=deg)
+    if name == "scale_modifier":
+        kw["scale_modifier"] = 1.37
+    if name.startswith("intrinsics"):
+        kw["intrinsics"] = f32(cam["intrinsics"])
+    if name.endswith("antialias"):
+        kw["antialias"] = True
+    if name == "offset":
+        kw["means2d_offset"] = f32(rng.normal(size=(n, 2)) * 3.0)
+    return kw, W, H
+
+
+def compare_k7(kw: dict, what: str) -> float:
+    """K7 against gaussian.preprocess on the same arguments, under
+    torch.inference_mode(); raises unless valid and the integer outputs are
+    equal, depth, mean, conic and opacity equal bit for bit (NaN where the
+    plain version has NaN) and the colour within K7_COLOR_*. Returns the
+    colour's max abs error."""
+    from gaustudio_torch.ops import gaussian
+
+    with torch.inference_mode():
+        got = gaussian.preprocess_forward(**kw)
+        want = gaussian.preprocess(**kw)
+    torch.cuda.synchronize()
+    color_err = 0.0
+    for name, g, w in zip(got._fields, got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"K7 {what}: {name} {tuple(g.shape)} {g.dtype} != plain {tuple(w.shape)} {w.dtype}")
+        if not g.is_floating_point():
+            bad = int((g != w).sum())
+            check(bad == 0, f"K7 {what}: {name} differs from the plain version in {bad} rows")
+        elif name == "colors":
+            if g.numel():
+                color_err = float((g - w).abs().nan_to_num(0.0).max())
+            torch.testing.assert_close(g, w, rtol=K7_COLOR_RTOL, atol=K7_COLOR_ATOL,
+                                       equal_nan=True, msg=f"K7 {what}: colors")
+        else:
+            torch.testing.assert_close(g, w, rtol=0.0, atol=0.0, equal_nan=True,
+                                       msg=f"K7 {what}: {name}")
+    say("kernels", f"K7 {what}: {got.depths.shape[0]} Gaussians, {int(got.valid.sum())} valid, "
+        f"{int(got.tiles_touched.sum())} rect tiles; integer outputs and valid equal, depth, mean, "
+        f"conic and opacity bit-equal, colour max|err| {color_err:.3e} (tol {K7_COLOR_ATOL:g} + "
+        f"{K7_COLOR_RTOL:g}*|x|)")
+    return color_err
+
+
+def k7_bytes(kw: dict) -> int:
+    """The bytes K7 must move for these arguments: each input read once (the
+    SH bands it reads), the Preprocessed record written once (65 B a
+    Gaussian)."""
+    from gaustudio_torch.ops.sh import RASTER_MAX_DEGREE
+
+    n = kw["means3d"].shape[0]
+    per = 12 + 4 + (24 if kw.get("cov3d_precomp") is not None else 12 + 16) + 65
+    if kw.get("shs") is not None:
+        num = kw["shs"].shape[1]
+        deg = min(kw.get("sh_degree", 3), RASTER_MAX_DEGREE, int(round(num ** 0.5)) - 1)
+        per += 12 * (max(deg, -1) + 1) ** 2
+    else:
+        per += 12
+    if kw.get("means2d_offset") is not None:
+        per += 8
+    return n * per
+
+
+def k7_scene(n: int, W: int, H: int, device, seed: int = 0) -> dict:
+    """preprocess's keyword arguments for n seeded SH-3 Gaussians in and
+    around the frustum of k7_camera(W, H, seed), made on the device."""
+    cam = k7_camera(W, H, seed)
+    tan_x, tan_y = cam["tan"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=device)  # noqa: E731
+    g = lambda *shape: torch.randn(shape, generator=gen, device=device)  # noqa: E731
+    vz = 1.0 + 19.0 * u(n)
+    view = torch.stack([(2.4 * u(n) - 1.2) * tan_x * vz, (2.4 * u(n) - 1.2) * tan_y * vz, vz], 1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    quats = g(n, 4)
+    return dict(means3d=((view - t(cam["t"])) @ t(cam["R"])).contiguous(),
+                opacities=torch.sigmoid(g(n)), viewmatrix=t(cam["viewmatrix"]),
+                projmatrix=t(cam["projmatrix"]), campos=t(cam["campos"]), image_width=W,
+                image_height=H, tan_fovx=tan_x, tan_fovy=tan_y,
+                scales=torch.exp(g(n, 3) * 0.7 - 4.5),
+                rotations=quats / quats.norm(dim=1, keepdim=True),
+                shs=g(n, 16, 3) * 0.3, sh_degree=3)
+
+
+def k7_registers() -> dict:
+    """{K7's instantiation (its mangled name): registers a thread} from
+    ptxas's report in build/nvcc.log (empty where this process loaded a
+    library built before it)."""
+    import re
+
+    from gaustudio_torch.utils import kernels
+
+    regs, entry = {}, None
+    log = os.path.join(kernels.BUILD_DIR, "nvcc.log")
+    if not os.path.exists(log):
+        return regs
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry and "preprocess_forward_kernel" in entry:
+                regs[entry] = int(m.group(1))
+                entry = None
+    return regs
+
+
+def time_k7(kw: dict, label: str, card: str) -> tuple:
+    """(K7 ms, plain ms, bound ms, bound_by) at the shapes of ``kw``,
+    printed with K7's launches in the timing and its registers: K7 by the
+    device time of its kernel (torch.profiler, as K1; at 300k its host time
+    a call exceeds its device time) and by CUDA events, the plain
+    preprocess (gaussian.preprocess and its SH colours) by CUDA events, both
+    under torch.inference_mode()."""
+    from gaustudio_torch.ops import gaussian
+
+    n = kw["means3d"].shape[0]
+    k7 = lambda: gaussian.preprocess_forward(**kw)  # noqa: E731
+    with torch.inference_mode():
+        before = gaussian.preprocess_forward.launches
+        ms = device_ms(k7, ("preprocess_forward",))
+        events_ms = cuda_ms(k7, 20, warmup=2)
+        us = host_us(k7)
+        launches = gaussian.preprocess_forward.launches - before
+        plain_ms = cuda_ms(lambda: gaussian.preprocess(**kw), 5)
+    nbytes = k7_bytes(kw)
+    bound, by = bound_ms(nbytes, OPS["preprocess_forward"] * n)
+    regs = k7_registers()
+    say("time", f"preprocess_forward (K7) {label}, {n} Gaussians: kernel {ms:.4f} ms (torch.profiler; "
+        f"CUDA events {events_ms:.4f} ms), host {us:.1f} us per call, bound {bound:.4f} ms ({by}: "
+        f"{nbytes / max(n, 1):.0f} B a Gaussian), {100 * bound / ms:.1f}% of it; plain "
+        f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); {launches} launches; registers "
+        f"{max(regs.values()) if regs else 'not in this build log'} (most of its "
+        f"{len(regs)} instantiations) | {card}")
+    return ms, plain_ms, bound, by
 
 
 def pairs_walked(ranges, final_T, n_contrib, W: int, H: int) -> tuple[int, int]:
@@ -1121,14 +1379,15 @@ def time_surfel_kernels(pre, fwd_args, bwd_args, W: int, H: int, card: str) -> d
 
 
 def _wrappers() -> dict:
-    from gaustudio_torch.ops import binning, composite, composite_surfel
+    from gaustudio_torch.ops import binning, composite, composite_surfel, gaussian
 
     return {"duplicate_with_keys": binning.duplicate_with_keys,
             "identify_tile_ranges": binning.identify_tile_ranges,
             "render_tiles": composite.render_tiles,
             "render_tiles_backward": composite.render_tiles_backward,
             "render_surfel_tiles": composite_surfel.render_surfel_tiles,
-            "render_surfel_tiles_backward": composite_surfel.render_surfel_tiles_backward}
+            "render_surfel_tiles_backward": composite_surfel.render_surfel_tiles_backward,
+            "preprocess_forward": gaussian.preprocess_forward}
 
 
 def reset_counts() -> None:
@@ -1239,6 +1498,7 @@ def main_path_full(out_dir: str, ply: str, cams_path: str, device, card: str) ->
             f"max|err| {err:.2e} | {card}")
         busy_share(f"rasterize {FULL_W}x{FULL_H} {FULL_N} pts SH3", lambda: run(st),
                    timings["kernels"], card)
+    compare_k7_render(renderer, cam, pcd, f"{FULL_W}x{FULL_H} vanilla")
     return counts
 
 
@@ -1924,6 +2184,42 @@ def compare_rasterize(got: dict, ref: dict, what: str) -> float:
     return err
 
 
+def compare_k7_render(renderer, cam, pcd, what: str) -> float:
+    """rasterize() of one view with its preprocess through K7 (autograd off)
+    against the same call through gaussian.preprocess (autograd on, the
+    means requiring a gradient), both through K1-K3: int outputs equal,
+    floats within K3's tolerance (compare_rasterize), and K7 launched once,
+    by the first call alone. Returns the largest float error."""
+    from gaustudio_torch.ops import gaussian
+    from gaustudio_torch.ops import rasterize as rast
+
+    with torch.no_grad():
+        xyz, shs, colors, opacity, scales, rotations, cov3d = (
+            renderer.get_gaussians_properties(cam, pcd))
+    st = renderer.make_settings(cam, pcd, xyz.device)
+    active = getattr(pcd, "active_sh_degree", None) if shs is not None else None
+
+    def run(means):
+        return rast.rasterize(means, opacity, st, shs=shs, colors_precomp=colors, scales=scales,
+                              rotations=rotations, cov3D_precomp=cov3d, active_sh_degree=active)
+
+    before = gaussian.preprocess_forward.launches
+    with torch.inference_mode():
+        got = run(xyz)
+    launched = gaussian.preprocess_forward.launches - before
+    with torch.enable_grad():
+        ref = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in run(xyz.detach().requires_grad_()).items()}
+    check(launched == 1 and gaussian.preprocess_forward.launches - before == 1,
+          f"{what}: K7 launched {launched} times for its render, "
+          f"{gaussian.preprocess_forward.launches - before - launched} for the torch path's")
+    err = compare_rasterize(got, ref, f"{what}: K7 against the torch preprocess")
+    say("kernels", f"{what}: rasterize with K7 against the torch preprocess, {xyz.shape[0]} "
+        f"Gaussians, {got['num_rendered']} entries: int outputs equal, max|err| {err:.2e} (tol "
+        f"{K3_ATOL:g} + {K3_RTOL:g}*|x|); K7 launched once")
+    return err
+
+
 def variant_render(out_dir: str, config: str, ply: str, cams_path: str, device, card: str):
     """gs-render --config ``config`` of ``ply`` from the three 1080p cameras,
     then the middle view through the kernels against the plain path, timed.
@@ -1989,6 +2285,7 @@ def variant_render(out_dir: str, config: str, ply: str, cams_path: str, device, 
             f"call); kernels - plain max|err| {err:.2e} (tol {K3_ATOL:g} + {K3_RTOL:g}*|x|, int "
             f"outputs exact) | {card}")
         busy_share(f"{config}: rasterize {FULL_W}x{FULL_H}", lambda: run(st), kernels_s, card)
+    compare_k7_render(renderer, cam, pcd, config)
     return counts, pcd, renderer, cam, out
 
 
@@ -4414,6 +4711,8 @@ def main(argv=None) -> int:
     mini_cam = load_cameras(os.path.join(FIXTURE, "cameras.json"), device)[0]
     mini_pre = view_preprocess(renderer, mini_cam, mini_pcd)
     errs = compare_kernels(mini_pre, mini_cam.image_width, mini_cam.image_height)
+    errs["preprocess_forward"] = compare_k7(view_inputs(renderer, mini_cam, mini_pcd),
+                                            "mini_scene view")
     errs["render_tiles_backward"], _ = compare_backward(
         mini_pre, mini_cam.image_width, mini_cam.image_height, seed=0)
     mini_surfel_errs, _, _ = compare_surfel_kernels(
@@ -4422,8 +4721,10 @@ def main(argv=None) -> int:
     ply, cams_path = write_full_scene(args.out)
     full_pcd = load_model(ply, 3, device)
     full_cam = load_cameras(cams_path, device)[1]
+    full_kw = view_inputs(renderer, full_cam, full_pcd)
     full_pre = view_preprocess(renderer, full_cam, full_pcd)
     full_errs = compare_kernels(full_pre, FULL_W, FULL_H)
+    full_errs["preprocess_forward"] = compare_k7(full_kw, f"{FULL_W}x{FULL_H} view")
     full_errs["render_tiles_backward"], k4_args = compare_backward(full_pre, FULL_W, FULL_H, seed=1)
     errs = {k: max(errs[k], full_errs[k]) for k in errs}
     times = time_kernels(full_pre, FULL_W, FULL_H, card,
@@ -4435,7 +4736,10 @@ def main(argv=None) -> int:
         f"{times['render_tiles_backward'][0]:.4f} ms, plain "
         f"{times['render_tiles_backward'][1]:.4f} ms | {card}")
     bounds = vanilla_bounds(full_pre, FULL_W, FULL_H)
-    del full_pcd, full_pre, mini_pre, k4_args
+    k7 = time_k7(full_kw, f"{FULL_W}x{FULL_H}", card)
+    times["preprocess_forward"], bounds["preprocess_forward"] = k7[:2], k7[2:]
+    del full_pcd, full_pre, mini_pre, k4_args, full_kw
+    time_k7(k7_scene(K7_N, K7_W, K7_H, device), f"{K7_W}x{K7_H}", card)
 
     surfel_ply, surfel_cams = write_surfel_scene(args.out)
     surfel_pcd = load_model(surfel_ply, 3, device, SURFEL_CONFIG)

@@ -1,12 +1,18 @@
 """Per-Gaussian projection math — the rasterizer's preprocess stage.
 
-Port of gaustudio_tpu/ops/gaussian.py in plain torch ops: frustum culling,
-3D covariance from scale/quaternion, EWA 2D covariance with the fov clamp
-and the 0.3 low-pass, conic, screen radius and the tight tile rect (the
-3-sigma circle intersected with the opacity support ellipse). The JAX
-package has no Pallas kernel here, so neither does the port. Expressions
-keep the JAX package's operation order so both give the same float32
-results.
+Port of gaustudio_tpu/ops/gaussian.py: frustum culling, 3D covariance from
+scale/quaternion, EWA 2D covariance with the fov clamp and the 0.3
+low-pass, conic, screen radius and the tight tile rect (the 3-sigma circle
+intersected with the opacity support ellipse).
+
+:func:`preprocess` is the plain version, in torch ops. Expressions keep the
+JAX package's operation order so both give the same float32 results. It
+runs under autograd (the train step), on the CPU and with
+``backend="plain"``. :func:`preprocess_forward` is kernel K7
+(csrc/preprocess.cu), which computes the same outputs in one launch for
+renders on the card that want no gradient. The JAX package has no Pallas
+kernel here: it leaves preprocess to XLA's fusion, and K7 replaces the
+~150 torch ops that took 17 of a 20 ms frame at 3M Gaussians (PERF.md).
 
 ``viewmatrix`` / ``projmatrix`` are the transposed W2V / W2V @ P matrices
 (row-vector convention, ``p_view = (p, 1) @ viewmatrix``).
@@ -19,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from gaustudio_torch.ops import sh as sh_ops
+from gaustudio_torch.utils import kernels
 
 TILE_X = 16
 TILE_Y = 16
@@ -303,6 +310,118 @@ def preprocess(
         rect_max=rect_max,
         tiles_touched=torch.where(valid, tiles, zero),
     )
+
+
+def preprocess_forward(
+    means3d,
+    opacities,
+    viewmatrix,
+    projmatrix,
+    campos,
+    image_width: int,
+    image_height: int,
+    tan_fovx: float,
+    tan_fovy: float,
+    *,
+    shs=None,
+    sh_degree: int = 3,
+    colors_precomp=None,
+    scales=None,
+    rotations=None,
+    cov3d_precomp=None,
+    scale_modifier: float = 1.0,
+    means2d_offset=None,
+    antialias: bool = False,
+    intrinsics=None,
+) -> Preprocessed:
+    """K7: :func:`preprocess` in one launch, for float32 CUDA tensors.
+
+    Takes :func:`preprocess`'s arguments and returns its outputs, in the
+    same dtypes and shapes, each a contiguous tensor of its own. The integer
+    outputs, ``valid``, depth, mean, conic and opacity equal the plain
+    version's; the colour differs from its SH sum by rounding. No gradient
+    flows through it. Raises, before any launch, on an input that is not a
+    float32 tensor of its shape on the current CUDA device.
+    """
+    if (shs is None) == (colors_precomp is None):
+        raise ValueError("preprocess_forward: give exactly one of shs and colors_precomp")
+    if cov3d_precomp is None and (scales is None or rotations is None):
+        raise ValueError("preprocess_forward: give scales and rotations, or cov3d_precomp")
+    n = means3d.shape[0] if means3d.dim() == 2 else -1
+    inputs = {"means3d": (means3d, (n, 3)), "opacities": (opacities, None),
+              "viewmatrix": (viewmatrix, (4, 4))}
+    if intrinsics is None:
+        inputs["projmatrix"] = (projmatrix, (4, 4))
+    else:
+        inputs["intrinsics"] = (intrinsics, (4,))
+    coeffs, sh_stride = 0, 0
+    if shs is not None:
+        inputs["campos"] = (campos, (3,))
+        num = shs.shape[1] if shs.dim() == 3 else 0
+        max_deg = min(sh_ops.RASTER_MAX_DEGREE, int(round(num ** 0.5)) - 1)
+        if num < 1 or (max_deg + 1) ** 2 > num:
+            raise ValueError(f"preprocess_forward: shs of shape {tuple(shs.shape)} hold no "
+                             "whole SH band")
+        inputs["shs"] = (shs, (n, num, 3))
+        coeffs, sh_stride = (max(min(sh_degree, max_deg), -1) + 1) ** 2, 3 * num
+    else:
+        inputs["colors_precomp"] = (colors_precomp, (n, 3))
+    if cov3d_precomp is None:
+        inputs["scales"] = (scales, (n, 3))
+        inputs["rotations"] = (rotations, (n, 4))
+    else:
+        inputs["cov3d_precomp"] = (cov3d_precomp, (n, 6))
+    if means2d_offset is not None:
+        inputs["means2d_offset"] = (means2d_offset, (n, 2))
+    for name, (t, shape) in inputs.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"preprocess_forward: {name} must be float32, got {t.dtype}")
+        if (t.numel() != n) if shape is None else (tuple(t.shape) != shape):
+            raise ValueError(f"preprocess_forward: {name} has shape {tuple(t.shape)}, expected "
+                             f"{shape or (n,)} for {n} Gaussians (means3d {tuple(means3d.shape)})")
+    for name, (t, _) in inputs.items():  # after every dtype and shape
+        if not t.is_cuda:
+            raise ValueError(f"preprocess_forward: {name} must be a CUDA tensor, got {t.device}")
+    ins = {name: t.contiguous() for name, (t, _) in inputs.items()}
+    kernels.require_cuda("preprocess_forward", *ins.values())
+
+    device = means3d.device
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    out = Preprocessed(
+        valid=torch.empty(n, dtype=torch.bool, device=device),
+        depths=torch.empty(n, **f32),
+        means2d=torch.empty((n, 2), **f32),
+        conic=torch.empty((n, 3), **f32),
+        opacities=torch.empty(n, **f32),
+        colors=torch.empty((n, 3), **f32),
+        radii=torch.empty(n, **i32),
+        rect_min=torch.empty((n, 2), **i32),
+        rect_max=torch.empty((n, 2), **i32),
+        tiles_touched=torch.empty(n, **i32),
+    )
+    if n == 0:
+        return out
+    # the host scalars of the projection-matrix path, as preprocess computes them
+    focal_x = focal_y = lim_x = lim_y = 0.0
+    if intrinsics is None:
+        focal_x = image_width / (2.0 * tan_fovx)
+        focal_y = image_height / (2.0 * tan_fovy)
+        lim_x, lim_y = 1.3 * tan_fovx, 1.3 * tan_fovy
+    ptr = lambda name: ins[name].data_ptr() if name in ins else None  # noqa: E731
+    kernels.check(kernels.load().gs_preprocess_forward(
+        n, image_width, image_height, (image_width + TILE_X - 1) // TILE_X,
+        (image_height + TILE_Y - 1) // TILE_Y, coeffs, sh_stride, int(antialias),
+        scale_modifier, focal_x, focal_y, lim_x, lim_y,
+        *(ptr(name) for name in ("means3d", "opacities", "scales", "rotations", "cov3d_precomp",
+                                 "shs", "colors_precomp", "viewmatrix", "projmatrix", "campos",
+                                 "intrinsics", "means2d_offset")),
+        *(t.data_ptr() for t in out), kernels.stream()), "gs_preprocess_forward")
+    preprocess_forward.launches += 1
+    return out
+
+
+preprocess_forward.launches = 0
 
 
 def mark_visible(means3d, viewmatrix, projmatrix=None):

@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "gs_count_entries": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "gs_write_entries": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "gs_render_tiles_backward": [_I, _I, _I, _I] + [_P] * 16,
     "gs_render_surfel_tiles": [_I, _I, _I, _I] + [_P] * 18,
     "gs_render_surfel_tiles_backward": [_I, _I, _I, _I] + [_P] * 18,
+    "gs_preprocess_forward": [_I] * 8 + [_F] * 5 + [_P] * 23,
 }
 
 _lib = None

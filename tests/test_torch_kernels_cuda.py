@@ -1,13 +1,16 @@
 """The CUDA kernels of gaustudio_torch (K1-K3 forward, K4 backward; K1
-without the cull, K5 surfel forward, K6 surfel backward) against their plain
-PyTorch versions, on the card. Skipped where torch sees no CUDA device.
+without the cull, K5 surfel forward, K6 surfel backward; K7 preprocess
+forward) against their plain PyTorch versions, on the card. Skipped where
+torch sees no CUDA device.
 
 The hard cases of K1-K6 (chip_smoke.py hard_case, k1_case and k2_cases: a
 Gaussian or surfel in every tile, warps that end far apart, more than 256
 entries a pixel, a ragged image whose bottom tiles hold an odd number of
 rows; a full-screen primitive among thousands of small ones, 1, 31 and 33
 primitives, rows with no tiles inside a warp, a view the cull empties;
-empty and single-entry tiles) run here too.
+empty and single-entry tiles) run here too, and K7 on every branch of
+gaussian.preprocess and its hard rows (chip_smoke.k7_case), and inside the
+vanilla, mip, gsplat and Scaffold renders.
 
 This file imports no jax. tests/conftest.py does, and the machine with the
 card has no jax, so there pytest runs it without the conftest
@@ -238,3 +241,44 @@ def test_identify_tile_ranges_case_matches_plain(case, cuda):
     want = binning.identify_tile_ranges_plain(keys, num_tiles)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", chip_smoke.K7_CASES)
+def test_preprocess_forward_case_matches_plain(case, cuda):
+    """K7 on a case of chip_smoke.k7_case: valid and the integer outputs
+    equal to gaussian.preprocess's, depth, mean, conic and opacity bit for
+    bit, the colour (another order of the SH sum) within abs 1e-5 + rel 1e-5
+    (compare_k7 raises)."""
+    kw, _, _ = chip_smoke.k7_case(case, cuda)
+    chip_smoke.compare_k7(kw, case)
+
+
+@pytest.fixture(scope="module")
+def small_scene(tmp_path_factory):
+    """A 3000-Gaussian SH-3 scene and its three 200x120 cameras."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these comparisons on the card")
+    return chip_smoke.write_full_scene(str(tmp_path_factory.mktemp("k7")), n=3000, W=200, H=120)
+
+
+@pytest.mark.parametrize("config", ["vanilla", "mip", "gsplat", "scaffold"])
+def test_render_through_preprocess_forward_matches_the_torch_preprocess(config, small_scene,
+                                                                        cuda):
+    """Each view's rasterize() with K7 against the same call through
+    gaussian.preprocess, both through K1-K3: int outputs equal, floats within
+    K3's tolerance, one K7 launch a render (compare_k7_render raises)."""
+    from gaustudio_torch import models, renderers
+    from gaustudio_torch.config import builtin_config_path, load_config
+
+    ply, cams_path = small_scene
+    conf = load_config(builtin_config_path(config))
+    if config == "scaffold":
+        xyz = chip_smoke.make_scene(300, seed=chip_smoke.SCAFFOLD_SEED)[0]
+        pcd = chip_smoke.scaffold_model(xyz, cuda)
+    else:
+        pcd = models.make(conf["model"]["pointcloud"], device=cuda)
+        pcd.load(ply)
+        pcd.active_sh_degree = 3
+    renderer = renderers.make(conf["renderer"], device=cuda)
+    for cam in chip_smoke.load_cameras(cams_path, cuda):
+        chip_smoke.compare_k7_render(renderer, cam, pcd, f"{config} {cam.image_name}")

@@ -113,7 +113,8 @@ def test_render_counters_match_the_binning(scene, monkeypatch):
     assert _host_names(prof).count("gs.render") == len(cams)
     assert rep["counters"] == {
         "gs.frustum": sum(v for v, _, _ in seen), "gs.rect_tiles": sum(t for _, t, _ in seen),
-        "gs.entries": sum(o["num_rendered"] for o in outs), "gs.pixels": len(cams) * W * H}
+        "gs.entries": sum(o["num_rendered"] for o in outs), "gs.pixels": len(cams) * W * H,
+        "gs.preprocess.calls": len(cams), "gs.preprocess.kernel": 0}  # K7 runs on a card only
     assert rep["counters"]["gs.entries"] == sum(e for _, _, e in seen)
     assert 0 < rep["counters"]["gs.entries"] <= rep["counters"]["gs.rect_tiles"]
 
