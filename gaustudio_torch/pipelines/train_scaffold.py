@@ -5,17 +5,26 @@ gaustudio_tpu/pipelines/train_scaffold.py, single device).
 The JAX trainer keeps anchors in fixed-capacity padded arrays with a
 ``valid`` mask; the port trains on dynamic tensors, as its other trainers
 do: every row is a live anchor, and ``adjust_anchors`` drops and appends
-rows. So the volume term is the mean over the n·k decoded rows, as
-Scaffold-GS defines it (the JAX mean runs over the padded capacity).
+rows. So the volume term is the positive-opacity rows' volume over all n·k
+decoded rows (the JAX mean runs over the padded capacity; Scaffold-GS's
+over the masked rows of the visible anchors).
 
 One step decodes every anchor's k Gaussians for the view (``decode_scaffold``:
-no visibility mask and no feature bank), renders them through rasterize()
-(kernels K1-K3 forward, K4 backward on a CUDA device) with the background
-composited in the loss, and applies Adam over the whole parameter set (the
-anchor attributes and every MLP weight) with one shared step count. The
-statistics are per offset Gaussian for growing (the viewspace gradient norm
-where ``radii > 0`` and the opacity is positive) and per anchor for pruning
-(the mean decoded opacity over the views where it had a live Gaussian).
+no visibility mask and no feature bank), keeps the rows of positive decoded
+opacity, as Scaffold-GS's renderer does (``mask = neural_opacity > 0``), and
+renders those alone through rasterize() (kernels K1-K3 forward, K4 backward
+on a CUDA device) with the background composited in the loss; then Adam over
+the whole parameter set (the anchor attributes and every MLP weight) with one
+shared step count. A dead row adds nothing to the render and gets no
+gradient from it, so the compaction leaves the loss and the gradients as
+rendering every row gives them. The statistics are per offset Gaussian for
+growing (the viewspace gradient norm where ``radii > 0`` and the opacity is
+positive) and per anchor for pruning (the mean decoded opacity over the
+views where it had a live Gaussian); the rasterized rows' viewspace
+gradients and radii are scattered back to the n·k rows for them. On a card
+``ScaffoldTrainer`` replays the photometric loss's forward and backward as
+CUDA graphs (``graphed_rgb_loss``): with the live rows alone, the step's
+~2,100 kernel launches left the host, not the device, setting its pace.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from gaustudio_torch.ops.rasterize import RasterizeSettings
 from gaustudio_torch.pipelines import train as T
 from gaustudio_torch.pipelines.optimizers.general import exp_lr_schedule
 from gaustudio_torch.utils.misc import resolve_device
+from gaustudio_torch.utils.observability import annotate, count
 
 PARAMS = ("anchor", "offset", "anchor_feat", "scale", "rot")  # one row per anchor
 MLP_PREFIX = "mlp."  # params[f"mlp.{head}.{layer}.{weight|bias}"]: nn.Linear layout
@@ -172,53 +182,89 @@ def learning_rates(params, step: int, cfg: ScaffoldTrainConfig) -> Dict[str, flo
 def shared_adam_update(grads, mu, nu, count: int, params, lrs, *, b1: float = 0.9,
                        b2: float = 0.999, eps: float = 1e-15):
     """Adam over every leaf with one shared step count (float32 bias
-    correction) -> (params, mu, nu, count)."""
+    correction) -> (params, mu, nu, count). Each operation runs over all
+    leaves at once (``torch._foreach_*``: a few launches a step, not a few a
+    leaf), in the order and rounding of ``p - lr (m / c1) / (sqrt(v / c2) +
+    eps)`` taken leaf by leaf."""
     count += 1
-    dev = next(iter(params.values())).device
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), float(count))
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), float(count))
-    new_p, new_mu, new_nu = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k]
-        m = b1 * mu[k] + (1 - b1) * g
-        v = b2 * nu[k] + (1 - b2) * g * g
-        new_p[k] = p - lrs[k] * (m / c1) / (torch.sqrt(v / c2) + eps)
-        new_mu[k], new_nu[k] = m, v
-    return new_p, new_mu, new_nu, count
+    c1, c2 = (float(1.0 - torch.pow(torch.tensor(b, dtype=torch.float32), float(count)))
+              for b in (b1, b2))
+    keys = list(params)
+    g = [grads[k] for k in keys]
+    m = torch._foreach_add(torch._foreach_mul([mu[k] for k in keys], b1),
+                           torch._foreach_mul(g, 1 - b1))
+    v = torch._foreach_add(torch._foreach_mul([nu[k] for k in keys], b2),
+                           torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+    step = torch._foreach_mul(torch._foreach_div(m, c1), [lrs[k] for k in keys])
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v, c2)), eps)
+    new_p = torch._foreach_sub([params[k] for k in keys], torch._foreach_div(step, denom))
+    return dict(zip(keys, new_p)), dict(zip(keys, m)), dict(zip(keys, v)), count
 
 
-def scaffold_loss(out, opacity, scales, gt, cfg: ScaffoldTrainConfig):
-    """L1 + D-SSIM of the render over the background, plus ``lambda_vol`` times
-    the mean volume (product of scales) of the positive-opacity rows."""
+def graphed_rgb_loss(shape, lambda_dssim: float, device):
+    """``ssim_ops.rgb_loss(pred, gt, lambda_dssim)`` for [3, H, W] images of
+    ``shape`` on a card, its forward and its backward each captured once as
+    a CUDA graph (``torch.cuda.make_graphed_callables``) and replayed: the
+    same kernels in the same order, two launches a step for the host to
+    issue in place of ~520. Capture while no other thread uses the card."""
+    pred = torch.zeros(shape, device=device, requires_grad=True)
+    return torch.cuda.make_graphed_callables(
+        lambda p, g: ssim_ops.rgb_loss(p, g, lambda_dssim),
+        (pred, torch.zeros(shape, device=device)))
+
+
+def scaffold_loss(out, opacity, scales, gt, cfg: ScaffoldTrainConfig, rgb_loss=None):
+    """L1 + D-SSIM of the render over the background (``rgb_loss(pred, gt)``,
+    by default ``ssim_ops.rgb_loss`` with ``cfg.lambda_dssim``), plus
+    ``lambda_vol`` times the volume (product of scales) of the
+    positive-opacity rows summed and divided by the number of decoded rows."""
     bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=gt.device)
     pred = out["render"] + bg[:, None, None] * (1.0 - out["rendered_final_opacity"][0])
-    photo = ssim_ops.rgb_loss(pred, gt, cfg.lambda_dssim)
-    vol = torch.mean(torch.where(opacity[:, None] > 0.0, scales, 0.0).prod(-1))
+    photo = (rgb_loss(pred, gt) if rgb_loss is not None
+             else ssim_ops.rgb_loss(pred, gt, cfg.lambda_dssim))
+    # the product written out: prod()'s backward takes a cumulative-product
+    # scan over the rows wherever a factor is zero, as every dead row's is
+    s = torch.where(opacity[:, None] > 0.0, scales, 0.0)
+    vol = torch.mean(s[:, 0] * s[:, 1] * s[:, 2])
     return photo + cfg.lambda_vol * vol
 
 
 def train_step_scaffold(state: ScaffoldTrainState, batch: T.CameraBatch,
                         settings: RasterizeSettings, cfg: ScaffoldTrainConfig, heads,
-                        n_offsets: int):
-    """One optimisation step: decode -> render -> loss -> Adam -> statistics.
-    Returns (new state, metrics); the metrics are tensors or ints."""
+                        n_offsets: int, rgb_loss=None):
+    """One optimisation step: decode -> render the live rows -> loss -> Adam
+    -> statistics. Returns (new state, metrics); the metrics are tensors or
+    ints. ``rgb_loss`` is :func:`scaffold_loss`'s."""
     device = state.params["anchor"].device
     k, n = n_offsets, state.num_anchors
     s = settings._replace(viewmatrix=batch.viewmatrix, projmatrix=batch.projmatrix,
                           campos=batch.campos, bg=torch.zeros(3, device=device))
     params = {key: v.detach().requires_grad_(True) for key, v in state.params.items()}
-    offset2d = torch.zeros((n * k, 2), device=device, requires_grad=True)
-    xyz, color, opacity, scales, rots, neural_op = decode_scaffold(params, heads, s.campos, k)
-    out = rast.rasterize(xyz, opacity, s, colors_precomp=color, scales=scales, rotations=rots,
-                         means2D_offset=offset2d)
-    loss = scaffold_loss(out, opacity, scales, batch.gt_image, cfg)
+    count("gs.scaffold.anchors", n)
+    count("gs.scaffold.rows", n * k)
+    with annotate("gs.scaffold.decode", params["anchor"]):
+        xyz, color, opacity, scales, rots, neural_op = decode_scaffold(params, heads, s.campos, k)
+        rows = torch.nonzero(opacity > 0.0).squeeze(1)  # ascending: the rows keep their order
+        # index_select's backward is an index_add onto the n·k rows
+        xyz_l, op_l, color_l, scales_l, rots_l = (torch.index_select(t, 0, rows)
+                                                  for t in (xyz, opacity, color, scales, rots))
+    count("gs.scaffold.live", rows.shape[0])
+    offset2d = torch.zeros((rows.shape[0], 2), device=device, requires_grad=True)
+    out = rast.rasterize(xyz_l, op_l, s, colors_precomp=color_l, scales=scales_l,
+                         rotations=rots_l, means2D_offset=offset2d)
+    with annotate("gs.loss", out["render"]):
+        loss = scaffold_loss(out, opacity, scales, batch.gt_image, cfg, rgb_loss)
     leaves = list(params.values()) + [offset2d]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    with annotate("gs.backward", loss):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     vs_grads = grads.pop()
 
-    with torch.no_grad():
-        live = (out["radii"] > 0) & (opacity > 0.0)
+    with torch.no_grad(), annotate("gs.adam", loss):
+        # the rasterized rows' viewspace gradients and radii, back on the n·k rows
+        vs_grads = vs_grads.new_zeros((n * k, 2)).index_copy_(0, rows, vs_grads)
+        radii = out["radii"].new_zeros(n * k).index_copy_(0, rows, out["radii"])
+        live = (radii > 0) & (opacity > 0.0)
         vs_norm = torch.sqrt(torch.sum(vs_grads * vs_grads, dim=-1) + 1e-24)
         offset_grad_accum = state.offset_grad_accum + torch.where(live, vs_norm, 0.0)
         offset_denom = state.offset_denom + live.to(torch.float32)
@@ -226,7 +272,7 @@ def train_step_scaffold(state: ScaffoldTrainState, batch: T.CameraBatch,
         seen = live.reshape(n, k).any(dim=1)
         opacity_accum = state.opacity_accum + torch.where(seen, op_anchor / k, 0.0)
         anchor_denom = state.anchor_denom + seen.to(torch.float32)
-        new_p, mu, nu, count = shared_adam_update(
+        new_p, mu, nu, opt_count = shared_adam_update(
             dict(zip(params, grads)), state.mu, state.nu, state.opt_count, state.params,
             learning_rates(state.params, state.step, cfg))
     metrics = {
@@ -235,7 +281,7 @@ def train_step_scaffold(state: ScaffoldTrainState, batch: T.CameraBatch,
         "num_points": n,
         "num_rendered": out["num_rendered"],
     }
-    return state._replace(params=new_p, mu=mu, nu=nu, opt_count=count, step=state.step + 1,
+    return state._replace(params=new_p, mu=mu, nu=nu, opt_count=opt_count, step=state.step + 1,
                           offset_grad_accum=offset_grad_accum, offset_denom=offset_denom,
                           opacity_accum=opacity_accum, anchor_denom=anchor_denom), metrics
 
@@ -334,6 +380,7 @@ class ScaffoldTrainer:
         self.state = init_scaffold_state(pcd, self.device)
         cam0 = self.cameras[0]
         self.H, self.W = int(cam0.image_height), int(cam0.image_width)
+        self._rgb_loss = None  # graphed_rgb_loss on a card, made by train()
 
     batch = T.Trainer.batch
 
@@ -345,8 +392,9 @@ class ScaffoldTrainer:
 
     def step(self, batch: T.CameraBatch, settings: RasterizeSettings):
         """One optimisation step of the current state: (new state, metrics)."""
+        rgb_loss = self._rgb_loss if batch.gt_image.shape == (3, self.H, self.W) else None
         return train_step_scaffold(self.state, batch, settings, self.cfg, self.pcd.mlp,
-                                   self.pcd.n_offsets)
+                                   self.pcd.n_offsets, rgb_loss)
 
     def train(self, iterations: Optional[int] = None, log_every: int = 100, callback=None,
               metrics_path: Optional[str] = None):
@@ -357,23 +405,30 @@ class ScaffoldTrainer:
         cfg = self.cfg
         iters = iterations or cfg.iterations
         settings = self.settings()
+        if self._rgb_loss is None and self.device.type == "cuda":
+            # captured before the loader's thread starts copying to the card
+            self._rgb_loss = graphed_rgb_loss((3, self.H, self.W), cfg.lambda_dssim, self.device)
         logger = MetricsLogger(metrics_path, echo=False) if metrics_path else None
         next_batch = make_batch_source(self.cameras, self.batch)
         history = []
         try:
             for it in range(1, iters + 1):
-                self.state, metrics = self.step(next_batch(), settings)
-                if (cfg.update_from < it < cfg.update_until
-                        and it % cfg.update_interval == 0):
-                    self.state = adjust_anchors(self.state, cfg, self.pcd)
-                if it % log_every == 0 or it == iters:
-                    m = {key: float(v) for key, v in metrics.items()}
-                    m["iter"] = it
-                    history.append(m)
-                    if logger:
-                        logger.log(it, **{key: v for key, v in m.items() if key != "iter"})
-                    if callback:
-                        callback(m)
+                with annotate("gs.step"):
+                    with annotate("gs.loader_wait"):
+                        batch = next_batch()
+                    self.state, metrics = self.step(batch, settings)
+                    if (cfg.update_from < it < cfg.update_until
+                            and it % cfg.update_interval == 0):
+                        with annotate("gs.scaffold.adjust", self.state.params["anchor"]):
+                            self.state = adjust_anchors(self.state, cfg, self.pcd)
+                    if it % log_every == 0 or it == iters:
+                        m = {key: float(v) for key, v in metrics.items()}
+                        m["iter"] = it
+                        history.append(m)
+                        if logger:
+                            logger.log(it, **{key: v for key, v in m.items() if key != "iter"})
+                        if callback:
+                            callback(m)
         finally:
             next_batch.close()
             if logger:
