@@ -13,22 +13,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 3. kernels: each kernel (K1 duplicate_with_keys, K2 identify_tile_ranges,
    K3 render_tiles, K4 render_tiles_backward; K1 without the cull, K5
    render_surfel_tiles and K6 render_surfel_tiles_backward; K7
-   preprocess_forward) against its plain PyTorch version on the card, on a
-   mini_scene view (vanilla, and the same model as 2DGS surfels) and on one
-   1920x1080 view of a 300k-Gaussian SH-3 model (K1-K4, K7) and of a
+   preprocess_forward, K8 preprocess_backward) against its plain PyTorch
+   version on the card (K8 also against torch autograd), on a mini_scene
+   view (vanilla, and the same model as 2DGS surfels) and on one 1920x1080
+   view of a 300k-Gaussian SH-3 model (K1-K4, K7, K8) and of a
    200k-surfel SH-3 model (K1, K2, K5, K6), with the tolerances stated
    below; then each kernel's time against its plain version's (and, for K2,
    torch.searchsorted's) at the 1080p shapes (K1, K2 and torch.searchsorted
    on the device by torch.profiler, K1 over every op of its wrapper, with
-   the host time of a call beside it; K7 by torch.profiler and CUDA events,
-   also at 3M Gaussians x 1237x822, with its bytes bound, launches and
+   the host time of a call beside it; K7 and K8 by torch.profiler and CUDA
+   events, also at 3M Gaussians x 1237x822, with their bytes bounds, launches and
    registers; the others by CUDA events), and the time of the torch-op
    stages (activations + preprocess, the sort); then K1-K6 on the hard cases
    (hard_case: one Gaussian or surfel in every tile, warps that end far
    apart, more than 256 entries a pixel, a ragged image whose bottom tiles
    hold an odd number of rows), K1 in both modes on its own (k1_case: a full-screen primitive
    among thousands of small ones, 1, 31 and 33 primitives, rows with no
-   tiles inside a warp, a view where the cull keeps nothing), K7 on every
+   tiles inside a warp, a view where the cull keeps nothing), K7 and K8 on every
    branch of gaussian.preprocess and its hard rows (k7_case) and K2 on empty
    and single-entry tiles;
 4. render path on the fixture: gs-render on tests/fixtures/mini_scene, and
@@ -37,7 +38,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1920x1080 cameras, with the launch counts of that run, the lit-fraction
    guard, rasterize() timed warm against the plain path, the device's
    busy share of a warm render, and the middle view's rasterize() with K7
-   against the same call through the torch preprocess (compare_k7_render);
+   against the same call with backend="plain" (compare_k7_render);
 6. training path on the fixture: gs-train for 1000 iterations from the
    fixture's sparse points (densification at 600-1000), with the launch
    counts of that run, and the PSNR of the exported model against that of
@@ -79,7 +80,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    means: 300k decoded Gaussians) from the three 1080p cameras, each with
    its launches (K1-K3, not K4), lit fraction, middle view through the
    kernels against the plain path (K3's tolerance), with K7 against the
-   torch preprocess (compare_k7_render), rasterize() wall and busy share;
+   plain path (compare_k7_render), rasterize() wall and busy share;
    mip's filtered opacities at most the raw ones, gsplat's image
    not vanilla's; then 30 Scaffold steps at 1080p against the vanilla
    scene's renders (K1-K4, ms/it, stages, busy share) and one
@@ -232,6 +233,16 @@ K4_RTOL, K4_ATOL = 2e-3, 2e-5
 # valid, depth, mean, conic and opacity agree exactly; its colour sums the SH
 # terms in another order than the einsum, within K3's tolerance.
 K7_COLOR_ATOL = K7_COLOR_RTOL = 1e-5
+# K8 recomputes K7's forward and sums its gradients fused and in another
+# order: each gradient, scaled by the plain version's max |value|, within
+# K8_ATOL of gaussian.preprocess_backward_plain and of torch autograd through
+# gaussian.preprocess, which lie as far apart themselves in float32
+# (tests/test_torch_preprocess_backward.py). Rows whose colour lies within
+# K8_COLOR_EDGE of 0 are left out of the SH and mean gradients: K8's gate of
+# the colour's clamp reads K7's SH sum, which rounds otherwise than the
+# einsum's.
+K8_ATOL = 1e-4
+K8_COLOR_EDGE = 1e-5
 SURFEL_N = 200_000  # bench_all.py bench_surfel_render
 SURFEL_TRAIN_W = SURFEL_TRAIN_H = 512  # bench_all.py bench_surfel_train_step
 SURFEL_TRAIN_N = 60_000
@@ -252,12 +263,14 @@ SURFEL_CONFIG = {"name": "vanilla_pcd", "attributes": {
 # pair a pixel evaluates, K3 ~20 (power, exp, alpha, tests, blend), K4 ~60,
 # K5 ~45 (gs_surfel_hit ~33, the tests and the 13-value blend) and K6 ~110
 # (the hit and the VJP of the intersection); K7 ~300 per Gaussian (the
-# covariances, the rects and the SH 3 colour).
+# covariances, the rects and the SH 3 colour), K8 ~600 (K7's geometry and
+# colour again, and their gradients).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS = {"duplicate_with_keys": 79, "identify_tile_ranges": 1, "render_tiles": 20,
        "render_tiles_backward": 60, "render_surfel_tiles": 45,
-       "render_surfel_tiles_backward": 110, "preprocess_forward": 300}
+       "render_surfel_tiles_backward": 110, "preprocess_forward": 300,
+       "preprocess_backward": 600}
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "duplicate_with_keys": ("gaustudio_torch/csrc/binning.cu",
@@ -278,6 +291,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "preprocess_forward": ("gaustudio_torch/csrc/preprocess.cu",
                            "none: gaustudio_tpu/ops/gaussian.py preprocess is left to XLA's "
                            "fusion"),
+    "preprocess_backward": ("gaustudio_torch/csrc/preprocess.cu",
+                            "none: the gradients of gaustudio_tpu/ops/gaussian.py preprocess "
+                            "are left to jax.grad and XLA"),
 }
 # K1's kernels by name, of this design and of the one before it (so that
 # --ab can print a parent's by-name time too)
@@ -1030,6 +1046,8 @@ def compare_hard_cases(device) -> dict:
         kw, _, _ = k7_case(name, device)
         errs["preprocess_forward"] = max(errs.get("preprocess_forward", 0.0),
                                          compare_k7(kw, f"case {name}"))
+        errs["preprocess_backward"] = max(errs.get("preprocess_backward", 0.0),
+                                          compare_k8(kw, f"case {name}", seed=len(name)))
     for name, (keys, num_tiles) in k2_cases(device).items():
         got = binning.identify_tile_ranges(keys, num_tiles)
         want = binning.identify_tile_ranges_plain(keys, num_tiles)
@@ -1218,10 +1236,10 @@ def k7_scene(n: int, W: int, H: int, device, seed: int = 0) -> dict:
                 shs=g(n, 16, 3) * 0.3, sh_degree=3)
 
 
-def k7_registers() -> dict:
-    """{K7's instantiation (its mangled name): registers a thread} from
-    ptxas's report in build/nvcc.log (empty where this process loaded a
-    library built before it)."""
+def kernel_registers(name: str) -> dict:
+    """{each instantiation of the kernel ``name`` (its mangled name):
+    registers a thread} from ptxas's report in build/nvcc.log (empty where
+    this process loaded a library built before it)."""
     import re
 
     from gaustudio_torch.utils import kernels
@@ -1237,7 +1255,7 @@ def k7_registers() -> dict:
                 entry = m.group(1)
                 continue
             m = re.search(r"Used (\d+) registers", line)
-            if m and entry and "preprocess_forward_kernel" in entry:
+            if m and entry and name in entry:
                 regs[entry] = int(m.group(1))
                 entry = None
     return regs
@@ -1263,13 +1281,135 @@ def time_k7(kw: dict, label: str, card: str) -> tuple:
         plain_ms = cuda_ms(lambda: gaussian.preprocess(**kw), 5)
     nbytes = k7_bytes(kw)
     bound, by = bound_ms(nbytes, OPS["preprocess_forward"] * n)
-    regs = k7_registers()
+    regs = kernel_registers("preprocess_forward_kernel")
     say("time", f"preprocess_forward (K7) {label}, {n} Gaussians: kernel {ms:.4f} ms (torch.profiler; "
         f"CUDA events {events_ms:.4f} ms), host {us:.1f} us per call, bound {bound:.4f} ms ({by}: "
         f"{nbytes / max(n, 1):.0f} B a Gaussian), {100 * bound / ms:.1f}% of it; plain "
         f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); {launches} launches; registers "
         f"{max(regs.values()) if regs else 'not in this build log'} (most of its "
         f"{len(regs)} instantiations) | {card}")
+    return ms, plain_ms, bound, by
+
+
+def k8_cotangents(n: int, device, seed: int, zero_share: float = 0.3) -> dict:
+    """Seeded upstream gradients of preprocess's outputs laid out as K4
+    leaves them: views of one [n, 10] accumulator, all zero on about
+    ``zero_share`` of the rows (those no tile touched)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randn((n, 10), generator=gen, device=device)
+    acc[torch.rand(n, generator=gen, device=device) < zero_share] = 0.0
+    return dict(d_means2d=acc[:, 0:2], d_conic=acc[:, 2:5], d_opacities=acc[:, 5],
+                d_colors=acc[:, 6:9], d_depths=acc[:, 9])
+
+
+def compare_k8(kw: dict, what: str, seed: int = 0) -> float:
+    """K8 against gaussian.preprocess_backward_plain and against torch autograd
+    through gaussian.preprocess, on seeded upstream gradients in K4's layout
+    (k8_cotangents): each gradient finite where the plain one is, within
+    K8_ATOL of both once scaled by the plain one's max |value| (but the SH and
+    mean gradients of rows whose colour lies within K8_COLOR_EDGE of 0),
+    exact zeros on the rows with no upstream gradient, one launch. Returns
+    the largest scaled error."""
+    from gaustudio_torch.ops import gaussian, sh as sh_ops
+
+    n = kw["means3d"].shape[0]
+    cot = k8_cotangents(n, kw["means3d"].device, seed)
+    before = gaussian.preprocess_backward.launches
+    got = gaussian.preprocess_backward(**kw, **cot)
+    launched = gaussian.preprocess_backward.launches - before
+    plain = gaussian.preprocess_backward_plain(**kw, **cot)
+    leaves = {k: kw[k].clone().requires_grad_(True) for k in plain._fields
+              if kw.get(k) is not None}
+    with torch.enable_grad():
+        pre = gaussian.preprocess(**{**kw, **leaves})
+        loss = sum((getattr(pre, k) * cot["d_" + k].reshape(getattr(pre, k).shape)).sum()
+                   for k in ("depths", "means2d", "conic", "opacities", "colors"))
+        auto = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                    allow_unused=True)))
+    torch.cuda.synchronize()
+    check(launched == (1 if n else 0), f"K8 {what}: {launched} launches for one call")
+    rows = lambda t: t.reshape(n, t.numel() // n if n else 0)  # noqa: E731
+    zero = torch.stack([rows(v).abs().sum(1) for v in cot.values()]).sum(0) == 0
+    edge = torch.zeros(n, dtype=torch.bool, device=zero.device)
+    if kw.get("shs") is not None and n:
+        shs = kw["shs"]
+        max_deg = min(sh_ops.RASTER_MAX_DEGREE, int(round(shs.shape[1] ** 0.5)) - 1)
+        rgb = sh_ops.eval_sh_masked(kw.get("sh_degree", 3), shs.transpose(-1, -2), (
+            lambda d: d * torch.rsqrt((d * d).sum(-1, keepdim=True) + 1e-18))(
+                kw["means3d"] - kw["campos"]), max_deg) + 0.5
+        edge = (rgb.abs() < K8_COLOR_EDGE).any(-1)
+    worst = 0.0
+    for name, g, p in zip(plain._fields, got, plain):
+        if p is None:
+            check(g is None, f"K8 {what}: {name} given where the plain version has none")
+            continue
+        a = auto[name] if auto.get(name) is not None else torch.zeros_like(p)
+        check(g.shape == p.shape and g.dtype == p.dtype, f"K8 {what}: {name} {tuple(g.shape)}")
+        check(not rows(g)[zero].any(), f"K8 {what}: {name} not zero on untouched rows")
+        keep = ~edge if name in ("shs", "means3d") else torch.ones_like(edge)
+        g, p, a = rows(g)[keep], rows(p)[keep], rows(a)[keep]
+        finite = torch.isfinite(p)
+        check(bool((torch.isfinite(g) == finite).all()), f"K8 {what}: {name} finite elsewhere "
+              "than the plain version's")
+        scale = float(p[finite].abs().max()) if finite.any() else 0.0
+        scale = scale if scale > 0.0 else 1.0
+        for ref, label in ((p, "plain"), (a, "autograd")):
+            err = float((g[finite] - ref[finite]).abs().max()) / scale if finite.any() else 0.0
+            check(err <= K8_ATOL, f"K8 {what}: {name} off the {label} version by {err:.3e} of "
+                  f"its largest |value| {scale:.3e} (tol {K8_ATOL:g})")
+            worst = max(worst, err)
+    say("kernels", f"K8 {what}: {n} Gaussians, {int(zero.sum())} with no upstream gradient "
+        f"(exact zeros), {int(edge.sum())} with a colour within {K8_COLOR_EDGE:g} of 0 left out of "
+        f"the SH and mean gradients; every gradient within {worst:.3e} of the plain version and "
+        f"of autograd, scaled (tol {K8_ATOL:g}); {launched} launch")
+    return worst
+
+
+def k8_bytes(kw: dict) -> int:
+    """The bytes K8 must move for these arguments: the upstream gradients it
+    reads (depth, mean, conic, and colour with SH, opacity with antialias),
+    each input it reads once (the SH bands it reads), each gradient it
+    writes once (d_SH whole rows); the gradients handed on unchanged move
+    nothing."""
+    from gaustudio_torch.ops.sh import RASTER_MAX_DEGREE
+
+    n = kw["means3d"].shape[0]
+    per = 4 + 8 + 12 + 12 + 12  # d_depth, d_mean2d, d_conic read; mean read, d_mean written
+    per += 2 * (24 if kw.get("cov3d_precomp") is not None else 12 + 16)
+    if kw.get("shs") is not None:
+        num = kw["shs"].shape[1]
+        deg = min(kw.get("sh_degree", 3), RASTER_MAX_DEGREE, int(round(num ** 0.5)) - 1)
+        per += 12 + 12 * (max(deg, -1) + 1) ** 2 + 12 * num
+    if kw.get("antialias"):
+        per += 4 + 4 + 4
+    return n * per
+
+
+def time_k8(kw: dict, label: str, card: str) -> tuple:
+    """(K8 ms, plain ms, bound ms, bound_by) at the shapes of ``kw`` on
+    k8_cotangents, printed with K8's launches in the timing and its
+    registers: K8 by the device time of its kernel (torch.profiler) and by
+    CUDA events, preprocess_backward_plain by CUDA events."""
+    from gaustudio_torch.ops import gaussian
+
+    n = kw["means3d"].shape[0]
+    cot = k8_cotangents(n, kw["means3d"].device, seed=9)
+    k8 = lambda: gaussian.preprocess_backward(**kw, **cot)  # noqa: E731
+    before = gaussian.preprocess_backward.launches
+    ms = device_ms(k8, ("preprocess_backward",))
+    events_ms = cuda_ms(k8, 20, warmup=2)
+    us = host_us(k8)
+    launches = gaussian.preprocess_backward.launches - before
+    plain_ms = cuda_ms(lambda: gaussian.preprocess_backward_plain(**kw, **cot), 3)
+    nbytes = k8_bytes(kw)
+    bound, by = bound_ms(nbytes, OPS["preprocess_backward"] * n)
+    regs = kernel_registers("preprocess_backward_kernel")
+    say("time", f"preprocess_backward (K8) {label}, {n} Gaussians: kernel {ms:.4f} ms "
+        f"(torch.profiler; CUDA events {events_ms:.4f} ms), host {us:.1f} us per call, bound "
+        f"{bound:.4f} ms ({by}: {nbytes / max(n, 1):.0f} B a Gaussian), {100 * bound / ms:.1f}% "
+        f"of it; plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); {launches} launches; registers "
+        f"{max(regs.values()) if regs else 'not in this build log'} (most of its {len(regs)} "
+        f"instantiations: {regs}) | {card}")
     return ms, plain_ms, bound, by
 
 
@@ -1387,7 +1527,8 @@ def _wrappers() -> dict:
             "render_tiles_backward": composite.render_tiles_backward,
             "render_surfel_tiles": composite_surfel.render_surfel_tiles,
             "render_surfel_tiles_backward": composite_surfel.render_surfel_tiles_backward,
-            "preprocess_forward": gaussian.preprocess_forward}
+            "preprocess_forward": gaussian.preprocess_forward,
+            "preprocess_backward": gaussian.preprocess_backward}
 
 
 def reset_counts() -> None:
@@ -2186,10 +2327,10 @@ def compare_rasterize(got: dict, ref: dict, what: str) -> float:
 
 def compare_k7_render(renderer, cam, pcd, what: str) -> float:
     """rasterize() of one view with its preprocess through K7 (autograd off)
-    against the same call through gaussian.preprocess (autograd on, the
-    means requiring a gradient), both through K1-K3: int outputs equal,
-    floats within K3's tolerance (compare_rasterize), and K7 launched once,
-    by the first call alone. Returns the largest float error."""
+    against the same call with ``backend="plain"`` (gaussian.preprocess and
+    the plain binning and compositor): int outputs equal, floats within K3's
+    tolerance (compare_rasterize), and K7 launched once, by the first call
+    alone. Returns the largest float error."""
     from gaustudio_torch.ops import gaussian
     from gaustudio_torch.ops import rasterize as rast
 
@@ -2199,22 +2340,21 @@ def compare_k7_render(renderer, cam, pcd, what: str) -> float:
     st = renderer.make_settings(cam, pcd, xyz.device)
     active = getattr(pcd, "active_sh_degree", None) if shs is not None else None
 
-    def run(means):
-        return rast.rasterize(means, opacity, st, shs=shs, colors_precomp=colors, scales=scales,
-                              rotations=rotations, cov3D_precomp=cov3d, active_sh_degree=active)
+    def run(settings):
+        return rast.rasterize(xyz, opacity, settings, shs=shs, colors_precomp=colors,
+                              scales=scales, rotations=rotations, cov3D_precomp=cov3d,
+                              active_sh_degree=active)
 
     before = gaussian.preprocess_forward.launches
     with torch.inference_mode():
-        got = run(xyz)
-    launched = gaussian.preprocess_forward.launches - before
-    with torch.enable_grad():
-        ref = {k: v.detach() if isinstance(v, torch.Tensor) else v
-               for k, v in run(xyz.detach().requires_grad_()).items()}
+        got = run(st)
+        launched = gaussian.preprocess_forward.launches - before
+        ref = run(st._replace(backend="plain"))
     check(launched == 1 and gaussian.preprocess_forward.launches - before == 1,
           f"{what}: K7 launched {launched} times for its render, "
-          f"{gaussian.preprocess_forward.launches - before - launched} for the torch path's")
-    err = compare_rasterize(got, ref, f"{what}: K7 against the torch preprocess")
-    say("kernels", f"{what}: rasterize with K7 against the torch preprocess, {xyz.shape[0]} "
+          f"{gaussian.preprocess_forward.launches - before - launched} for the plain path's")
+    err = compare_rasterize(got, ref, f"{what}: K7 against the plain path")
+    say("kernels", f"{what}: rasterize with K7 against the plain path, {xyz.shape[0]} "
         f"Gaussians, {got['num_rendered']} entries: int outputs equal, max|err| {err:.2e} (tol "
         f"{K3_ATOL:g} + {K3_RTOL:g}*|x|); K7 launched once")
     return err
@@ -4711,8 +4851,9 @@ def main(argv=None) -> int:
     mini_cam = load_cameras(os.path.join(FIXTURE, "cameras.json"), device)[0]
     mini_pre = view_preprocess(renderer, mini_cam, mini_pcd)
     errs = compare_kernels(mini_pre, mini_cam.image_width, mini_cam.image_height)
-    errs["preprocess_forward"] = compare_k7(view_inputs(renderer, mini_cam, mini_pcd),
-                                            "mini_scene view")
+    mini_kw = view_inputs(renderer, mini_cam, mini_pcd)
+    errs["preprocess_forward"] = compare_k7(mini_kw, "mini_scene view")
+    errs["preprocess_backward"] = compare_k8(mini_kw, "mini_scene view", seed=0)
     errs["render_tiles_backward"], _ = compare_backward(
         mini_pre, mini_cam.image_width, mini_cam.image_height, seed=0)
     mini_surfel_errs, _, _ = compare_surfel_kernels(
@@ -4725,6 +4866,7 @@ def main(argv=None) -> int:
     full_pre = view_preprocess(renderer, full_cam, full_pcd)
     full_errs = compare_kernels(full_pre, FULL_W, FULL_H)
     full_errs["preprocess_forward"] = compare_k7(full_kw, f"{FULL_W}x{FULL_H} view")
+    full_errs["preprocess_backward"] = compare_k8(full_kw, f"{FULL_W}x{FULL_H} view", seed=1)
     full_errs["render_tiles_backward"], k4_args = compare_backward(full_pre, FULL_W, FULL_H, seed=1)
     errs = {k: max(errs[k], full_errs[k]) for k in errs}
     times = time_kernels(full_pre, FULL_W, FULL_H, card,
@@ -4738,8 +4880,13 @@ def main(argv=None) -> int:
     bounds = vanilla_bounds(full_pre, FULL_W, FULL_H)
     k7 = time_k7(full_kw, f"{FULL_W}x{FULL_H}", card)
     times["preprocess_forward"], bounds["preprocess_forward"] = k7[:2], k7[2:]
-    del full_pcd, full_pre, mini_pre, k4_args, full_kw
-    time_k7(k7_scene(K7_N, K7_W, K7_H, device), f"{K7_W}x{K7_H}", card)
+    k8 = time_k8(full_kw, f"{FULL_W}x{FULL_H}", card)
+    times["preprocess_backward"], bounds["preprocess_backward"] = k8[:2], k8[2:]
+    del full_pcd, full_pre, mini_pre, k4_args, full_kw, mini_kw
+    scene_3m = k7_scene(K7_N, K7_W, K7_H, device)
+    time_k7(scene_3m, f"{K7_W}x{K7_H}", card)
+    time_k8(scene_3m, f"{K7_W}x{K7_H}", card)
+    del scene_3m
 
     surfel_ply, surfel_cams = write_surfel_scene(args.out)
     surfel_pcd = load_model(surfel_ply, 3, device, SURFEL_CONFIG)

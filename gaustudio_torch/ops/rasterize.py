@@ -1,11 +1,12 @@
 """Differentiable rasterization API (port of gaustudio_tpu/ops/rasterize.py).
 
-preprocess (kernel K7 where no gradient is wanted, else torch ops under
-autograd) -> binning (kernels K1, K2 and a stable torch.sort, on detached
-values) -> compositing (kernel K3 forward, kernel K4 backward, in
-composite.composite). CUDA tensors go through the kernels and CPU tensors
-through their plain versions; ``backend="plain"`` asks for the plain
-versions on any device.
+preprocess (kernel K7, and under autograd gaussian.preprocess_with_grad:
+K7 forward, kernel K8 backward) -> binning (kernels K1, K2 and a stable
+torch.sort, on detached values) -> compositing (kernel K3 forward, kernel
+K4 backward, in composite.composite). CUDA tensors go through the kernels
+and CPU tensors through their plain versions; ``backend="plain"`` asks for
+the plain versions on any device, with torch autograd through the
+preprocess's own ops.
 
 Outputs (CHW): render [3,H,W], rendered_depth [1,H,W],
 rendered_median_depth [1,H,W], rendered_median_weight [1,H,W],
@@ -74,14 +75,15 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
         pix_offset = means2D_offset * torch.tensor(
             [0.5 * W, 0.5 * H], dtype=means2D_offset.dtype, device=means2D_offset.device)
 
-    kernel = preprocess_takes_kernel(settings.backend, means3D.is_cuda, (
+    kernel = preprocess_takes_kernel(settings.backend, means3D.is_cuda)
+    preprocess = select_preprocess(settings.backend, means3D.is_cuda, (
         means3D, opacities, shs, colors_precomp, scales, rotations, cov3D_precomp,
         means2D_offset, settings.viewmatrix, settings.projmatrix, settings.campos,
         settings.intrinsics))
     count("gs.preprocess.calls", 1)
     count("gs.preprocess.kernel", int(kernel))
     with annotate("gs.preprocess", means3D):
-        pre = (gaussian.preprocess_forward if kernel else gaussian.preprocess)(
+        pre = preprocess(
             means3D, torch.reshape(opacities, (-1,)), settings.viewmatrix,
             settings.projmatrix, settings.campos, W, H, settings.tanfovx,
             settings.tanfovy, antialias=settings.antialias, shs=shs,
@@ -130,14 +132,28 @@ def rasterize(means3D, opacities, settings: RasterizeSettings, *, shs=None,
     }
 
 
-def preprocess_takes_kernel(backend: str, cuda: bool, tensors) -> bool:
+def preprocess_takes_kernel(backend: str, cuda: bool) -> bool:
     """Whether rasterize() preprocesses through K7 (gaussian.preprocess_forward):
-    the kernels are asked for (``backend="auto"``), the inputs lie on a card
-    (``cuda``) and no gradient is wanted, because autograd is off or none of
-    ``tensors`` (None allowed) requires one. Otherwise gaussian.preprocess
-    runs, in torch ops that autograd records."""
-    return backend == "auto" and cuda and not (torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors))
+    the kernels are asked for (``backend="auto"``) and the inputs lie on a
+    card (``cuda``). Under autograd K7 is the forward of
+    gaussian.preprocess_with_grad, whose backward is K8; otherwise it runs
+    alone. Elsewhere gaussian.preprocess runs, in torch ops."""
+    return backend == "auto" and cuda
+
+
+def select_preprocess(backend: str, cuda: bool, tensors):
+    """The preprocess rasterize() runs: with ``backend="plain"``
+    gaussian.preprocess, whose torch ops autograd records; where a gradient
+    is wanted (autograd on and one of ``tensors``, None allowed, requires
+    one) gaussian.preprocess_with_grad (K7 and K8, or their plain versions
+    on the CPU); otherwise K7 alone on a card and gaussian.preprocess on the
+    CPU."""
+    if backend == "plain":
+        return gaussian.preprocess
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return gaussian.preprocess_with_grad
+    return gaussian.preprocess_forward if preprocess_takes_kernel(backend, cuda) else (
+        gaussian.preprocess)
 
 
 def mark_visible(positions, viewmatrix, projmatrix):

@@ -86,6 +86,43 @@ def sh_basis(dirs: torch.Tensor, deg: int) -> torch.Tensor:
     return torch.stack(basis, dim=-1)
 
 
+def sh_basis_backward(dirs: torch.Tensor, d_basis: torch.Tensor) -> torch.Tensor:
+    """The vector-Jacobian product of :func:`sh_basis` up to band 3:
+    dirs [..., 3], d_basis [..., K] (K = 1, 4, 9 or 16) -> d_dirs [..., 3]."""
+    num = d_basis.shape[-1]
+    if num not in (1, 4, 9, 16):
+        raise ValueError(f"sh_basis_backward takes 1, 4, 9 or 16 coefficients, got {num}")
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    g = d_basis.unbind(-1)
+    dx = torch.zeros_like(x)
+    dy = torch.zeros_like(x)
+    dz = torch.zeros_like(x)
+    if num > 1:
+        dx = dx - C1 * g[3]
+        dy = dy - C1 * g[1]
+        dz = dz + C1 * g[2]
+    if num > 4:
+        xx, yy, zz = x * x, y * y, z * z
+        dx = dx + C2[0] * y * g[4] - 2.0 * C2[2] * x * g[6] + C2[3] * z * g[7] \
+            + 2.0 * C2[4] * x * g[8]
+        dy = dy + C2[0] * x * g[4] + C2[1] * z * g[5] - 2.0 * C2[2] * y * g[6] \
+            - 2.0 * C2[4] * y * g[8]
+        dz = dz + C2[1] * y * g[5] + 4.0 * C2[2] * z * g[6] + C2[3] * x * g[7]
+    if num > 9:
+        dx = dx + (C3[0] * 6.0 * x * y * g[9] + C3[1] * y * z * g[10]
+                   - C3[2] * 2.0 * x * y * g[11] - C3[3] * 6.0 * x * z * g[12]
+                   + C3[4] * (4.0 * zz - 3.0 * xx - yy) * g[13] + C3[5] * 2.0 * x * z * g[14]
+                   + C3[6] * 3.0 * (xx - yy) * g[15])
+        dy = dy + (C3[0] * 3.0 * (xx - yy) * g[9] + C3[1] * x * z * g[10]
+                   + C3[2] * (4.0 * zz - xx - 3.0 * yy) * g[11] - C3[3] * 6.0 * y * z * g[12]
+                   - C3[4] * 2.0 * x * y * g[13] - C3[5] * 2.0 * y * z * g[14]
+                   - C3[6] * 6.0 * x * y * g[15])
+        dz = dz + (C3[1] * x * y * g[10] + C3[2] * 8.0 * y * z * g[11]
+                   + C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy) * g[12]
+                   + C3[4] * 8.0 * x * z * g[13] + C3[5] * (xx - yy) * g[14])
+    return torch.stack([dx, dy, dz], dim=-1)
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH colours: sh [..., C, K] (K >= (deg+1)**2), dirs [..., 3] -> [..., C].
 

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "gs_render_surfel_tiles": [_I, _I, _I, _I] + [_P] * 18,
     "gs_render_surfel_tiles_backward": [_I, _I, _I, _I] + [_P] * 18,
     "gs_preprocess_forward": [_I] * 8 + [_F] * 5 + [_P] * 23,
+    "gs_preprocess_backward": [_I] * 11 + [_F] * 5 + [_P] * 22,
 }
 
 _lib = None

@@ -314,7 +314,7 @@ def test_kernels_line_sums_every_paths_launches_phase13s_too():
     report = chip_smoke.kernels_report(
         counts, {k: 0.0 for k in names}, {k: (1.0, 2.0) for k in names},
         {k: (0.5, "bytes") for k in names})
-    assert [k["name"] for k in report["kernels"]] == names and len(names) == 7
+    assert [k["name"] for k in report["kernels"]] == names and len(names) == 8
     assert all(k["launches"] == 111 for k in report["kernels"])
     assert all(k["library_ms"] is None for k in report["kernels"])
     source = inspect.getsource(chip_smoke.main)

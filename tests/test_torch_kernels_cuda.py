@@ -1,16 +1,18 @@
 """The CUDA kernels of gaustudio_torch (K1-K3 forward, K4 backward; K1
 without the cull, K5 surfel forward, K6 surfel backward; K7 preprocess
-forward) against their plain PyTorch versions, on the card. Skipped where
-torch sees no CUDA device.
+forward, K8 preprocess backward) against their plain PyTorch versions, on
+the card (K8 also against torch autograd). Skipped where torch sees no CUDA
+device.
 
 The hard cases of K1-K6 (chip_smoke.py hard_case, k1_case and k2_cases: a
 Gaussian or surfel in every tile, warps that end far apart, more than 256
 entries a pixel, a ragged image whose bottom tiles hold an odd number of
 rows; a full-screen primitive among thousands of small ones, 1, 31 and 33
 primitives, rows with no tiles inside a warp, a view the cull empties;
-empty and single-entry tiles) run here too, and K7 on every branch of
-gaussian.preprocess and its hard rows (chip_smoke.k7_case), and inside the
-vanilla, mip, gsplat and Scaffold renders.
+empty and single-entry tiles) run here too, and K7 and K8 on every branch
+of gaussian.preprocess and its hard rows (chip_smoke.k7_case), K7 inside the
+vanilla, mip, gsplat and Scaffold renders, and K7 and K8 at 300k Gaussians
+and inside one training step.
 
 This file imports no jax. tests/conftest.py does, and the machine with the
 card has no jax, so there pytest runs it without the conftest
@@ -18,6 +20,8 @@ card has no jax, so there pytest runs it without the conftest
 ``python3 chip_smoke.py`` runs the same comparisons, at the mini_scene,
 1080p/300k and 1080p/200k-surfel shapes and on the hard cases.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -251,6 +255,67 @@ def test_preprocess_forward_case_matches_plain(case, cuda):
     (compare_k7 raises)."""
     kw, _, _ = chip_smoke.k7_case(case, cuda)
     chip_smoke.compare_k7(kw, case)
+
+
+@pytest.mark.parametrize("case", chip_smoke.K7_CASES)
+def test_preprocess_backward_case_matches_plain(case, cuda):
+    """K8 on a case of chip_smoke.k7_case, on upstream gradients in K4's
+    layout with a third of the rows zero: within chip_smoke.K8_ATOL of
+    gaussian.preprocess_backward_plain and of torch autograd through
+    gaussian.preprocess, scaled, exact zeros on the zero rows (compare_k8
+    raises)."""
+    kw, _, _ = chip_smoke.k7_case(case, cuda)
+    chip_smoke.compare_k8(kw, case, seed=len(case))
+
+
+def test_preprocess_backward_at_300k_matches_plain(cuda):
+    """K8 at 300k SH-3 Gaussians on a 1920x1080 view, held as in
+    test_preprocess_backward_case_matches_plain."""
+    chip_smoke.compare_k8(chip_smoke.k7_scene(300_000, 1920, 1080, cuda), "300k at 1920x1080",
+                          seed=3)
+
+
+def test_train_step_takes_k7_and_k8(cuda):
+    """One training step on the fixture launches K7 once and K8 once, and its
+    counters read gs.preprocess.calls / .kernel / .kernel_bwd 1 / 1 / 1; a
+    render under inference_mode launches K7 alone, and .kernel_bwd reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaustudio_torch import datasets
+    from gaustudio_torch.pipelines import train as T
+    from gaustudio_torch.utils import observability as obs
+
+    ds = datasets.make({"name": "vanilla", "source_path": chip_smoke.FIXTURE})
+    pcd = chip_smoke.load_model(os.path.join(chip_smoke.FIXTURE, "gaussians.ply"), 3, cuda)
+    cfg = T.TrainConfig(iterations=1)
+    trainer = T.Trainer(pcd, ds, cfg, device=cuda)
+    batch = trainer.batch(trainer.cameras[0])
+    settings = trainer.settings()
+    state = T.init_state(pcd, cuda)
+    launches = {k: f.launches for k, f in (("k7", gaussian.preprocess_forward),
+                                           ("k8", gaussian.preprocess_backward))}
+    obs.report()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        T.train_step(state, batch, settings, cfg)
+        torch.cuda.synchronize()
+        rep = obs.report()
+    assert gaussian.preprocess_forward.launches - launches["k7"] == 1
+    assert gaussian.preprocess_backward.launches - launches["k8"] == 1
+    c = rep["counters"]
+    assert (c["gs.preprocess.calls"], c["gs.preprocess.kernel"],
+            c["gs.preprocess.kernel_bwd"]) == (1, 1, 1)
+    assert rep["spans"]["gs.preprocess_bwd"]["device_ms"] > 0.0
+    obs.report()  # outside a profiler: the next window starts a record of its own
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with torch.inference_mode():
+            s = settings._replace(viewmatrix=batch.viewmatrix, projmatrix=batch.projmatrix,
+                                  campos=batch.campos, bg=torch.zeros(3, device=cuda))
+            T.render_from_params(state.params, state.active_sh_degree, s)
+        torch.cuda.synchronize()
+        rep = obs.report()
+    assert gaussian.preprocess_backward.launches - launches["k8"] == 1
+    assert rep["counters"]["gs.preprocess.kernel"] == 1
+    assert rep["counters"].get("gs.preprocess.kernel_bwd", 0) == 0
 
 
 @pytest.fixture(scope="module")

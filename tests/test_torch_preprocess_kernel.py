@@ -61,29 +61,37 @@ def test_rasterize_preprocesses_in_torch_ops_on_the_cpu(case, backend, mode, mon
     assert out["render"].requires_grad == (mode == "grad")
 
 
-@pytest.mark.parametrize("backend,cuda,grad,requires,want", [
-    ("auto", True, "inference", False, True),
-    ("auto", True, "no_grad", True, True),
-    ("auto", True, "enabled", False, True),
-    ("auto", True, "enabled", True, False),
-    ("plain", True, "inference", False, False),
-    ("auto", False, "inference", False, False),
+@pytest.mark.parametrize("backend,cuda,grad,requires,want,runs", [
+    ("auto", True, "inference", False, True, "preprocess_forward"),
+    ("auto", True, "no_grad", True, True, "preprocess_forward"),
+    ("auto", True, "enabled", False, True, "preprocess_forward"),
+    ("auto", True, "enabled", True, True, "preprocess_with_grad"),
+    ("plain", True, "inference", False, False, "preprocess"),
+    ("auto", False, "inference", False, False, "preprocess"),
+    ("plain", True, "enabled", True, False, "preprocess"),
+    ("auto", False, "enabled", True, False, "preprocess_with_grad"),
 ], ids=["inference_mode", "no_grad", "no_input_requires_grad", "autograd", "plain",
-        "cpu"])
-def test_preprocess_takes_kernel(backend, cuda, grad, requires, want):
-    """K7 is taken exactly where the kernels are asked for, the inputs lie on
-    a card and no gradient is wanted (the render cell's inference_mode; not
-    the train step, whose parameters require gradients)."""
+        "cpu", "plain_autograd", "cpu_autograd"])
+def test_preprocess_takes_kernel(backend, cuda, grad, requires, want, runs):
+    """K7 is taken exactly where the kernels are asked for and the inputs lie
+    on a card, with or without autograd: where a gradient is wanted (the
+    train step) rasterize() runs gaussian.preprocess_with_grad, K7 forward
+    and K8 backward (their plain versions on the CPU). ``backend="plain"``
+    keeps the torch ops, under autograd too."""
     tensors = (torch.zeros(4, 3, requires_grad=requires), None, torch.zeros(4))
     if grad == "inference":
         with torch.inference_mode():
-            got = rast.preprocess_takes_kernel(backend, cuda, (torch.zeros(4, 3), None))
+            got = rast.preprocess_takes_kernel(backend, cuda)
+            fn = rast.select_preprocess(backend, cuda, (torch.zeros(4, 3), None))
     elif grad == "no_grad":
         with torch.no_grad():
-            got = rast.preprocess_takes_kernel(backend, cuda, tensors)
+            got = rast.preprocess_takes_kernel(backend, cuda)
+            fn = rast.select_preprocess(backend, cuda, tensors)
     else:
-        got = rast.preprocess_takes_kernel(backend, cuda, tensors)
+        got = rast.preprocess_takes_kernel(backend, cuda)
+        fn = rast.select_preprocess(backend, cuda, tensors)
     assert got == want
+    assert fn is getattr(gaussian, runs)
 
 
 def _bad(kw, what):
